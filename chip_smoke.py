@@ -11,7 +11,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   3. K1 against its plain PyTorch version on the card at both main-path
      shapes (single-branch block 0, B=64 256x256 C=2 -> 128 with negative BN
      scales; two-branch block-diagonal C=2 -> 2x64), with CUDA-event times of
-     the kernel, the plain version and the cuDNN chain, beside its bound;
+     the kernel (through the packed entry, weights packed once outside the
+     timed call, as on the main path), the plain version and the cuDNN
+     chain, beside its bound and its share of it; the kernel's registers,
+     shared memory and resident blocks per SM;
   4. the main path: 256 seeded synthetic 256x256 TIFF pairs scored by the
      eval CLI (``crosstalk_tpu_torch.cli.evaluate.main``) with random
      full-width single- and two-branch models, ``--fast`` and f32; checks
@@ -82,13 +85,22 @@ def phase_environment() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build K1 from csrc/; -> its resources at C=2 (both main-path shapes)."""
     from crosstalk_tpu_torch.ops import _build
+    from crosstalk_tpu_torch.ops.input_block import kernel_resources
 
     t0 = time.perf_counter()
     path = _build.build("input_block")
     _build.load("input_block")
     print(f"built {path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    res = kernel_resources(2)
+    print(f"K1 (C=2): {res['registers']} registers/thread, {res['shared_bytes']} B "
+          f"shared memory/block, {res['local_bytes']} B local (spill)/block, "
+          f"{res['threads']} threads/block, {res['blocks_per_sm']} resident blocks/SM",
+          flush=True)
+    check(res["blocks_per_sm"] >= 1, "K1 fits on an SM")
+    return res
 
 
 def k1_inputs(gen: torch.Generator, two_branch: bool):
@@ -112,13 +124,19 @@ def k1_inputs(gen: torch.Generator, two_branch: bool):
 def phase_k1(gen: torch.Generator, two_branch: bool) -> dict:
     from crosstalk_tpu_torch.ops.input_block import (
         fused_input_block,
+        fused_input_block_packed,
         fused_input_block_reference,
+        pack_input_block,
     )
 
     label = "two-branch block-diagonal" if two_branch else "single-branch"
     x, kernel, scale, bias = k1_inputs(gen, two_branch)
-    y = fused_input_block(x, kernel, scale, bias)
+    packed = pack_input_block(kernel, scale, bias)
+    y = fused_input_block_packed(x, packed)
+    public = fused_input_block(x, kernel, scale, bias)
     torch.cuda.synchronize()
+    check(torch.equal(y.view(torch.int16), public.view(torch.int16)),
+          f"K1 {label}: packed and public entries give identical bytes")
     ref = fused_input_block_reference(x, kernel, scale, bias)
     torch.cuda.synchronize()
     check(y.shape == ref.shape and y.dtype == torch.bfloat16,
@@ -145,7 +163,7 @@ def phase_k1(gen: torch.Generator, two_branch: bool) -> dict:
         z = F.conv2d(x_nchw.to(torch.bfloat16), w_cl, padding=1)
         return F.max_pool2d(F.leaky_relu(z * s_b + b_b, 0.01), 2)
 
-    ms = time_ms(lambda: fused_input_block(x, kernel, scale, bias))
+    ms = time_ms(lambda: fused_input_block_packed(x, packed))
     plain_ms = time_ms(lambda: fused_input_block_reference(x, kernel, scale, bias))
     library_ms = time_ms(library)
 
@@ -160,10 +178,11 @@ def phase_k1(gen: torch.Generator, two_branch: bool) -> dict:
     print(f"K1 {label}: kernel {ms:.4f} ms ({ms * 1e3 / b:.3f} us/tile), "
           f"plain {plain_ms:.4f} ms, cuDNN chain {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_ms * 1e3 / b:.3f} us/tile; "
-          f"{bytes_moved} B, {flops} FLOP)", flush=True)
+          f"{bytes_moved} B, {flops} FLOP), share of bound {bound_ms / ms:.3f}",
+          flush=True)
     return {
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "bound_ms": bound_ms, "bound_share": bound_ms / ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }
@@ -323,7 +342,7 @@ def time_stages(variant: str, ckpt: str) -> None:
 
 def main() -> int:
     smi = phase_environment()
-    phase_build()
+    resources = phase_build()
     from crosstalk_tpu_torch.device import set_parity_numerics
     from crosstalk_tpu_torch.ops.input_block import fused_input_block
 
@@ -350,6 +369,7 @@ def main() -> int:
         **single,
         "max_abs_err": max(single["max_abs_err"], double["max_abs_err"]),
         "launches_by_model": counters,
+        "resources_c2": resources,
         "two_branch_block_diagonal": double,
     }
     print(json.dumps({"kernels": [kernel]}), flush=True)

@@ -24,7 +24,11 @@ import torch.nn.functional as F
 
 from crosstalk_tpu_torch.config import ModelConfig
 from crosstalk_tpu_torch.io.torch_convert import StateDict, count_blocks, structure
-from crosstalk_tpu_torch.ops.input_block import fold_bn_affine, fused_input_block
+from crosstalk_tpu_torch.ops.input_block import (
+    fold_bn_affine,
+    fused_input_block_packed,
+    pack_input_block,
+)
 
 _BF16 = torch.bfloat16
 
@@ -104,10 +108,10 @@ def make_fast_forward(cfg: ModelConfig, state_dict: StateDict) -> Callable:
     prefixes = [p for p, _ in branches]
     n_blocks = count_blocks(sd, prefixes[0])
 
-    # block 0 for the kernel: HWIO kernel and affine; for the two-branch
-    # model, both branches' C=1 kernels stacked block-diagonally into one
-    # C=2 -> 2F call (bleed reads channel 0 into [:F], source channel 1
-    # into [F:]), exactly the flagship single-branch kernel shape
+    # block 0 for the kernel: HWIO kernel and affine, packed once; for the
+    # two-branch model, both branches' C=1 kernels stacked block-diagonally
+    # into one C=2 -> 2F call (bleed reads channel 0 into [:F], source
+    # channel 1 into [F:]), exactly the flagship single-branch kernel shape
     first = [_block_affine(sd, p, 0, eps) for p in prefixes]
     if double:
         (kb, sb, bb), (ks, ss, bs) = first
@@ -115,9 +119,9 @@ def make_fast_forward(cfg: ModelConfig, state_dict: StateDict) -> Callable:
         k0 = torch.zeros((3, 3, 2, 2 * f), dtype=kb.dtype, device=kb.device)
         k0[:, :, 0:1, :f] = kb
         k0[:, :, 1:2, f:] = ks
-        first_fused = (k0, torch.cat([sb, ss]), torch.cat([bb, bs]))
+        first_packed = pack_input_block(k0, torch.cat([sb, ss]), torch.cat([bb, bs]))
     else:
-        first_fused = first[0]
+        first_packed = pack_input_block(*first[0])
     convs: List[List[_Conv]] = [
         [_fold_conv(sd, p, i, eps) for i in range(n_blocks)] for p in prefixes
     ]
@@ -143,7 +147,7 @@ def make_fast_forward(cfg: ModelConfig, state_dict: StateDict) -> Callable:
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         if _kernel_gate(x):
-            z = fused_input_block(x, *first_fused, slope=slope).permute(0, 3, 1, 2)
+            z = fused_input_block_packed(x, first_packed, slope=slope).permute(0, 3, 1, 2)
             if double:
                 f = z.shape[1] // 2
                 feats = [z[:, :f], z[:, f:]]

@@ -19,7 +19,7 @@ from crosstalk_tpu.models import registry as jreg
 from crosstalk_tpu_torch.config import ModelConfig
 from crosstalk_tpu_torch.io.torch_convert import from_jax_variables
 from crosstalk_tpu_torch.models.registry import build_model
-from crosstalk_tpu_torch.ops.input_block import fused_input_block
+from crosstalk_tpu_torch.ops.input_block import fused_input_block_packed
 from tests.torch_ref import TorchDouble, TorchSingle, burn_in_batch_stats
 
 
@@ -29,9 +29,9 @@ def count_k1_calls(monkeypatch):
 
     def counting(*a, **k):
         calls["n"] += 1
-        return fused_input_block(*a, **k)
+        return fused_input_block_packed(*a, **k)
 
-    monkeypatch.setattr(ff, "fused_input_block", counting)
+    monkeypatch.setattr(ff, "fused_input_block_packed", counting)
     return calls
 
 

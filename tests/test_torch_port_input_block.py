@@ -16,7 +16,14 @@ import pytest
 import torch
 
 from crosstalk_tpu.ops.pallas.input_block import fused_input_block as jax_block
-from crosstalk_tpu_torch.ops.input_block import fold_bn_affine, fused_input_block
+from crosstalk_tpu_torch.ops.input_block import (
+    CHANNEL_SLICE,
+    fold_bn_affine,
+    fused_input_block,
+    fused_input_block_packed,
+    pack_input_block,
+    padded_taps,
+)
 
 ULP = 2.0 ** -7
 
@@ -40,11 +47,15 @@ def _inputs(rng, batch, size, c_in, kernel):
     return x, kernel, scale, bias
 
 
-def _compare(x, kernel, scale, bias):
+def _compare(x, kernel, scale, bias, packed_entry=False):
     want = jax_block(*(jnp.asarray(a) for a in (x, kernel, scale, bias)),
                      interpret=True)
     before = fused_input_block.launches
-    got = fused_input_block(*(torch.from_numpy(a) for a in (x, kernel, scale, bias)))
+    args = [torch.from_numpy(a) for a in (x, kernel, scale, bias)]
+    if packed_entry:
+        got = fused_input_block_packed(args[0], pack_input_block(*args[1:]))
+    else:
+        got = fused_input_block(*args)
     assert fused_input_block.launches == before  # CPU calls launch nothing
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     assert_within_one_ulp(got.float().numpy(), np.asarray(want, np.float32))
@@ -57,15 +68,58 @@ def test_plain_version_matches_pallas_kernel(c_in, features, size):
     _compare(*_inputs(rng, 3, size, c_in, kernel))
 
 
+def _block_diagonal_kernel(rng, f=64):
+    kernel = np.zeros((3, 3, 2, 2 * f), np.float32)
+    kernel[:, :, 0:1, :f] = rng.normal(0, 0.3, (3, 3, 1, f))
+    kernel[:, :, 1:2, f:] = rng.normal(0, 0.3, (3, 3, 1, f))
+    return kernel
+
+
 def test_plain_version_matches_pallas_kernel_block_diagonal():
     """The two-branch call: both branches' C=1 kernels stacked into one
     C=2 -> 2F kernel with zeros off the diagonal."""
     rng = np.random.default_rng(1)
-    f = 64
-    kernel = np.zeros((3, 3, 2, 2 * f), np.float32)
-    kernel[:, :, 0:1, :f] = rng.normal(0, 0.3, (3, 3, 1, f))
-    kernel[:, :, 1:2, f:] = rng.normal(0, 0.3, (3, 3, 1, f))
-    _compare(*_inputs(rng, 2, 32, 2, kernel))
+    _compare(*_inputs(rng, 2, 32, 2, _block_diagonal_kernel(rng)))
+
+
+@pytest.mark.parametrize("c_in,features,size,block_diagonal", [
+    (2, 128, 32, False), (1, 64, 64, False), (2, 128, 64, False), (2, 128, 32, True)])
+def test_packed_entry_matches_pallas_kernel(c_in, features, size, block_diagonal):
+    """The entry the fast forward calls, on weights packed once, on the CPU
+    (its plain version on the packed bf16 kernel)."""
+    rng = np.random.default_rng(5)
+    if block_diagonal:
+        kernel = _block_diagonal_kernel(rng, features // 2)
+    else:
+        kernel = rng.normal(0, 0.2, (3, 3, c_in, features)).astype(np.float32)
+    _compare(*_inputs(rng, 2, size, c_in, kernel), packed_entry=True)
+
+
+@pytest.mark.parametrize("c_in", [1, 2, 3, 4])
+@pytest.mark.parametrize("features", [8, 12, 64, 128, 200])
+def test_packed_layout_holds_the_folded_kernel(c_in, features):
+    """The GEMM layout read back under its documented K order, k =
+    (3 dh + dw) C + c, is the bf16 folded kernel; the padding is zero."""
+    rng = np.random.default_rng(6)
+    kernel = torch.from_numpy(rng.normal(0, 0.3, (3, 3, c_in, features)).astype(np.float32))
+    scale = torch.from_numpy(rng.normal(1, 0.3, features).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.2, features).astype(np.float32))
+    packed = pack_input_block(kernel, scale, bias)
+    k_pad = {1: 16, 2: 24, 3: 32, 4: 40}[c_in]
+    f_pad = -(-features // CHANNEL_SLICE) * CHANNEL_SLICE
+    assert padded_taps(c_in) == k_pad and packed.features == features
+    assert packed.gemm.shape == (f_pad, k_pad) and packed.gemm.dtype == torch.bfloat16
+    assert packed.bias.shape == (f_pad,) and packed.bias.dtype == torch.float32
+    folded = (kernel * scale).to(torch.bfloat16)
+    assert torch.equal(packed.folded, folded)
+    gemm = packed.gemm.float()
+    for dh in range(3):
+        for dw in range(3):
+            for c in range(c_in):
+                k = (3 * dh + dw) * c_in + c
+                assert torch.equal(gemm[:features, k], folded[dh, dw, c].float())
+    assert not gemm[features:].any() and not gemm[:, 9 * c_in:].any()
+    assert torch.equal(packed.bias[:features], bias) and not packed.bias[features:].any()
 
 
 def test_fold_bn_affine_matches_jax():
@@ -92,3 +146,10 @@ def test_wrapper_rejects_shapes_the_kernel_does_not_take(x_shape, k_shape, f):
     with pytest.raises(ValueError):
         fused_input_block(torch.zeros(x_shape), torch.zeros(k_shape),
                           torch.ones(f), torch.zeros(f))
+
+
+@pytest.mark.parametrize("x_shape", [(1, 8, 8, 1), (1, 8, 7, 2), (8, 8, 2)])
+def test_packed_entry_rejects_inputs_that_do_not_fit_the_packed_kernel(x_shape):
+    packed = pack_input_block(torch.zeros(3, 3, 2, 8), torch.ones(8), torch.zeros(8))
+    with pytest.raises(ValueError):
+        fused_input_block_packed(torch.zeros(x_shape), packed)
