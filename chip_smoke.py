@@ -15,14 +15,34 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      timed call, as on the main path), the plain version and the cuDNN
      chain, beside its bound and its share of it; the kernel's registers,
      shared memory and resident blocks per SM;
-  4. the main path: 256 seeded synthetic 256x256 TIFF pairs scored by the
+  4. the eval path: 256 seeded synthetic 256x256 TIFF pairs scored by the
      eval CLI (``crosstalk_tpu_torch.cli.evaluate.main``) with random
      full-width single- and two-branch models, ``--fast`` and f32; checks
      rows, fast-vs-f32 agreement, f32 vs a float64 run of the same model on
-     the card, and K1's launch count on each ``--fast`` run.
+     the card, and K1's launch count on each ``--fast`` run; then the device
+     time of each stage of one batch, and of the head's f32-output GEMMs
+     against bf16-output ones;
+  5. the server in-process, built by ``cli/serve.py``'s ``build_server``
+     (single-branch with the f32 and the f16 transport, two-branch with the
+     default one; batch 256, buckets 8 and 64) and driven by the port's
+     client from 8 threads with 64 seeded requests of 1-200 tiles, half on
+     the f16 wire: alphas against the same predictor called directly,
+     against the f32-wire answer and against the f32 parity forward; K1's
+     launches against the batches dispatched plus the warmup; /metrics;
+     served tiles/s, latency, occupancy and device share; where a request's
+     time goes;
+  6. the serve CLI as a subprocess: /healthz, ``cli/predict.py --url`` and
+     ``cli/remote_eval.py`` over the eval pairs against a local ``--fast``
+     predict, then SIGTERM and exit 0;
+  7. ``cli/predict.py --fast --unmix`` over 16 seeded 1024x1024 pairs (a
+     4x4 grid of tiles each) with both models: rows, K1's launches, the
+     median of the predictor's tile alphas, the unmixed TIFFs.
 
-The last three lines are the kernels JSON, the nvidia-smi line and
-``{"ok": true, "device": {...}}``. Imports nothing of the JAX package.
+Each path that runs K1 starts with its launch count at 0 and is read just
+after (``launches_by_path`` in the kernels JSON). Every number is printed
+beside the card's name and power limit. The last three lines are the
+kernels JSON, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
+Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +68,7 @@ BATCH = 64
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
 ULP_BF16 = 2.0 ** -7
+CARD = "card not read yet"  # nvidia-smi's name and power limit, set below
 
 
 def check(ok: bool, msg: str) -> None:
@@ -82,6 +103,8 @@ def phase_environment() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {torch.cuda.get_device_name(0)} | {smi}", flush=True)
+    global CARD
+    CARD = smi
     return smi
 
 
@@ -259,9 +282,9 @@ def float64_reference(model, mixed_dir, source_dir, n: int) -> np.ndarray:
     return out
 
 
-def phase_main_path(root: str, counters: dict) -> dict:
-    """-> {variant: checkpoint path}; ``counters`` gets K1's launches of
-    each variant's --fast run."""
+def phase_main_path(root: str, by_path: dict):
+    """-> ({variant: checkpoint path}, mixed dir, source dir); ``by_path``
+    gets K1's launches of each variant's --fast run."""
     from crosstalk_tpu_torch.ops.input_block import fused_input_block
 
     mixed_dir, source_dir = write_dataset(root, np.random.default_rng(SEED))
@@ -273,10 +296,9 @@ def phase_main_path(root: str, counters: dict) -> dict:
         model = make_checkpoint(variant, ckpt)
         common = ["-m", mixed_dir, "-s", source_dir, "-p", ckpt, "-j", "8",
                   "--batch_size", str(BATCH), "--device", "cuda", "-o", variant]
-        before = fused_input_block.launches
+        fused_input_block.launches = 0
         fast_rows, fast_s = run_cli(common + ["--output_base", os.path.join(root, f"{variant}_fast"), "--fast"])
-        launches = fused_input_block.launches - before
-        counters[variant] = launches
+        launches = by_path[f"eval_{variant}"] = fused_input_block.launches
         check(launches == expect_launches,
               f"{variant} --fast: K1 launched {launches} times "
               f"(expected {expect_launches} = ceil({N_PAIRS}/{BATCH}))")
@@ -304,7 +326,7 @@ def phase_main_path(root: str, counters: dict) -> dict:
               f"{N_PAIRS / f32_s:.1f} tiles/s", flush=True)
         del model
         torch.cuda.empty_cache()
-    return ckpts
+    return ckpts, mixed_dir, source_dir
 
 
 def time_stages(variant: str, ckpt: str) -> None:
@@ -334,41 +356,449 @@ def time_stages(variant: str, ckpt: str) -> None:
             "f32_forward": time_ms(lambda: f32(batch), iters=5),
             "metrics": time_ms(lambda: classical_metrics(batch), iters=5),
         }
-    print(f"{variant} stages per batch of {BATCH} (ms, CUDA events): "
+    print(f"{variant} stages per batch of {BATCH} (ms, CUDA events, {CARD}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
           + f"; --fast forward {BATCH / times['fast_forward'] * 1e3:.0f} tiles/s",
           flush=True)
+
+    # the head's three GEMMs at this batch: bf16 products kept in f32 (the
+    # port's route, cuBLAS with f32 output) against products rounded to bf16
+    from crosstalk_tpu_torch.eval.fast_forward import _matmul_f32
+    from crosstalk_tpu_torch.io.torch_convert import structure
+
+    _, head = structure(variant)
+    sd = model.state_dict()
+    weights = [sd[f"{head}.{i}.weight"].to(torch.bfloat16).contiguous() for i in (1, 5, 9)]
+    xs = [torch.randn(BATCH, w.shape[1], device="cuda", generator=gen).to(torch.bfloat16)
+          for w in weights]
+    with torch.inference_mode():
+        f32_out = time_ms(lambda: [_matmul_f32(x, w) for x, w in zip(xs, weights)])
+        bf16_out = time_ms(lambda: [F.linear(x, w).float() for x, w in zip(xs, weights)])
+    print(f"{variant} head GEMMs per batch of {BATCH} ({CARD}): f32 output "
+          f"{f32_out:.4f} ms, bf16 output {bf16_out:.4f} ms "
+          f"(first layer {weights[0].shape[1]} -> {weights[0].shape[0]})", flush=True)
+
+
+SERVE_SIZES = (1, 3, 17, 64, 200)
+N_REQUESTS = 64
+N_CLIENTS = 8
+SERVE_TOL = 2e-3
+SERVE_BATCH = 256
+SERVE_FLAGS = ["--batch_size", str(SERVE_BATCH), "--batch_buckets", "8,64", "--port", "0",
+               "--max_delay_ms", "5"]
+
+
+def serve_requests():
+    """The seeded requests: raw float64 intensities, sizes drawn from
+    SERVE_SIZES; odd-numbered requests go on the f16 wire."""
+    rng = np.random.default_rng(SEED + 3)
+    sizes = rng.choice(SERVE_SIZES, size=N_REQUESTS)
+    return [(rng.random((int(n), SIZE, SIZE, 2)) * 1800 + 100,
+             "float16" if i % 2 else "float32") for i, n in enumerate(sizes)]
+
+
+def decoded(tiles: np.ndarray, wire: str, transport: str) -> np.ndarray:
+    """What the server's batcher holds for ``tiles`` sent on ``wire``: the
+    client's wire transform, then the server's decode to its transport."""
+    from crosstalk_tpu_torch.serve.wire import to_f16_wire
+
+    sent = to_f16_wire(tiles, (1, 2)) if wire == "float16" else tiles.astype(np.float32)
+    if sent.dtype == np.dtype(transport):
+        return sent
+    return to_f16_wire(sent, (1, 2)) if transport == "float16" else sent.astype(np.float32)
+
+
+def predict_in_buckets(predict, arrays, batch: int) -> np.ndarray:
+    """``predict`` over the concatenated ``arrays`` in padded batches."""
+    rows = np.concatenate(arrays)
+    out = np.empty(len(rows), np.float32)
+    for start in range(0, len(rows), batch):
+        chunk = rows[start:start + batch]
+        real = len(chunk)
+        if real < batch:
+            chunk = np.concatenate([chunk, np.zeros((batch - real,) + chunk.shape[1:], chunk.dtype)])
+        out[start:start + real] = predict(chunk)[:real]
+    return out
+
+
+def drive_server(url: str, requests):
+    """Send ``requests`` from N_CLIENTS threads -> (alphas per request,
+    latency s per request, wall s)."""
+    import threading
+
+    from crosstalk_tpu_torch.serve.client import CrosstalkClient
+
+    results = [None] * len(requests)
+    latency = [None] * len(requests)
+
+    def worker(t):
+        client = CrosstalkClient(url, timeout=300)
+        for i in range(t, len(requests), N_CLIENTS):
+            tiles, wire = requests[i]
+            t0 = time.perf_counter()
+            try:
+                results[i] = client.predict(tiles, dtype=wire)
+            except Exception as e:  # reported by the check below
+                results[i] = e
+            latency[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(N_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads), "every client thread finished")
+    return results, latency, wall
+
+
+def request_breakdown(label, predict_forward, transport: str, wire: str) -> None:
+    """Where a 64-tile request's time goes, by stage: the client's wire
+    encode (cast or f16 rescale, npz), the server's decode of the body,
+    batch assembly, host-to-device copy, forward (normalize included; CUDA
+    events), response encoding. Host stages are medians of 5 on the host
+    clock."""
+    import io as _io
+
+    from crosstalk_tpu_torch.serve.server import _decode_request
+    from crosstalk_tpu_torch.serve.wire import to_f16_wire
+
+    rng = np.random.default_rng(SEED + 4)
+    tiles = (rng.random((BATCH, SIZE, SIZE, 2)) * 1800 + 100).astype(np.float32)
+
+    def encode():
+        buf = _io.BytesIO()
+        np.savez(buf, tiles=to_f16_wire(tiles, (1, 2)) if wire == "float16" else tiles)
+        return buf.getvalue()
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    body = encode()
+    batch = _decode_request(body, (SIZE, SIZE), 4096, np.dtype(transport))
+
+    def assemble():
+        out = np.zeros_like(batch)
+        out[:] = batch
+
+    def h2d():
+        torch.from_numpy(batch).to("cuda")
+        torch.cuda.synchronize()
+
+    x = torch.from_numpy(batch).to("cuda").float()
+    alphas = predict_forward(x).cpu().numpy()
+    stages = {
+        "encode": host_ms(encode),
+        "decode": host_ms(lambda: _decode_request(body, (SIZE, SIZE), 4096, np.dtype(transport))),
+        "assembly": host_ms(assemble),
+        "h2d": host_ms(h2d),
+        "forward": time_ms(lambda: predict_forward(x), iters=10),
+        "response": host_ms(lambda: json.dumps(
+            {"alpha": [float(a) for a in alphas], "n": len(alphas)}).encode()),
+    }
+    print(f"{label} one request of {BATCH} tiles, {wire} wire ({len(body) / 2**20:.1f} MiB "
+          f"body), {transport} transport ({CARD}), ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+
+
+def phase_serve(root: str, ckpts: dict, by_path: dict) -> None:
+    """The server in-process, built by the serve CLI's build function."""
+    import urllib.request
+
+    from crosstalk_tpu_torch.cli.serve import build_parser, build_server
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.io.export import make_forward
+    from crosstalk_tpu_torch.io.torch_convert import load_pth
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+
+    requests = serve_requests()
+    n_tiles = sum(len(t) for t, _ in requests)
+    print(f"serving: {N_REQUESTS} requests, {n_tiles} tiles of {SIZE}x{SIZE} "
+          f"(sizes {sorted(set(len(t) for t, _ in requests))})", flush=True)
+    references = {}
+    for path, variant, transport in (("serve_single_f32", "single", "float32"),
+                                     ("serve_single_f16", "single", "float16"),
+                                     ("serve_double", "double", None)):
+        argv = ["-p", ckpts[variant], "-o", variant, *SERVE_FLAGS]
+        if transport is not None:
+            argv += ["--transport_dtype", transport]
+        transport = transport or "float32"
+        fused_input_block.launches = 0
+        server, info = build_server(build_parser().parse_args(argv))
+        warmup = fused_input_block.launches
+        try:
+            server.start_background()
+            url = "http://%s:%d" % server.address
+            results, latency, wall = drive_server(url, requests)
+            with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+                stats = json.load(r)
+            launches = by_path[path] = fused_input_block.launches
+            with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+        finally:
+            server.shutdown()
+        bad = [r for r in results if not isinstance(r, np.ndarray)]
+        check(not bad, f"{path}: every request resolved ({bad[:1]})")
+        check(all(r.shape == (len(t),) and np.isfinite(r).all()
+                  for r, (t, _) in zip(results, requests)),
+              f"{path}: {N_REQUESTS} finite answers of the request's size")
+        check(warmup == 3 and launches == stats["batches"] + warmup,
+              f"{path}: K1 launched {launches} times = {stats['batches']} batches "
+              f"dispatched + {warmup} warmup (one per bucket)")
+        names = {ln.split()[0] for ln in metrics.splitlines() if ln and not ln.startswith("#")}
+        want = {f"crosstalk_{k}" for k in (
+            "requests_total", "tiles_total", "batches_total", "padded_rows_total",
+            "batch_capacity_rows_total", "device_seconds_total", "model_reloads_total",
+            "batch_occupancy", "batch_size")}
+        check(want <= names and stats["requests"] == N_REQUESTS and stats["tiles"] == n_tiles,
+              f"{path}: /metrics lists all {len(want)} counters; /stats counts "
+              f"{stats['requests']} requests, {stats['tiles']} tiles")
+
+        # the same predictor, called directly at its largest bucket on what the
+        # batcher held; the f32 fast and parity forwards of the same model
+        predict = server.batcher._predict
+        direct = predict_in_buckets(predict, [decoded(t, w, transport) for t, w in requests],
+                                    SERVE_BATCH)
+        if variant not in references:
+            sd = load_pth(ckpts[variant])
+            cfg = ModelConfig(variant=variant)
+            f32_input = [t.astype(np.float32) for t, _ in requests]
+            fast = make_predictor(sd, cfg, SERVE_BATCH, image_size=SIZE, warmup=False)
+            parity = make_predictor(sd, ModelConfig(variant=variant, compute_dtype="f32"),
+                                    SERVE_BATCH, image_size=SIZE, fast=False, warmup=False)
+            references[variant] = (predict_in_buckets(fast, f32_input, SERVE_BATCH),
+                                   predict_in_buckets(parity, f32_input, SERVE_BATCH))
+            del fast, parity
+            torch.cuda.empty_cache()
+        forward = make_forward(ModelConfig(variant=variant), load_pth(ckpts[variant]),
+                               device="cuda")
+        for wire in ("float32", "float16"):
+            request_breakdown(path, forward, transport, wire)
+        del forward
+        ref_fast, ref_parity = references[variant]
+        served = np.concatenate(results)
+        on_f16 = np.concatenate([np.full(len(t), w == "float16") for t, w in requests])
+        err_direct = float(np.abs(served - direct)[~on_f16].max())
+        err_wire = float(np.abs(served - ref_fast)[on_f16].max())
+        mae = float(np.abs(served - ref_parity).mean())
+        check(err_direct <= SERVE_TOL, f"{path}: f32-wire alphas vs the same predictor "
+                                       f"at bucket {SERVE_BATCH}: max |diff| {err_direct:.3e} (tol {SERVE_TOL})")
+        check(err_wire <= SERVE_TOL, f"{path}: f16-wire alphas vs the f32 alphas of the "
+                                     f"same tiles: max |diff| {err_wire:.3e} (tol {SERVE_TOL})")
+        check(mae <= SERVE_TOL, f"{path}: served alphas vs the f32 parity forward: "
+                                f"MAE {mae:.3e} (tol {SERVE_TOL})")
+        ms = np.array(latency) * 1e3
+        print(f"{path} ({CARD}): {n_tiles / wall:.1f} tiles/s served over {wall:.2f} s, "
+              f"request latency p50 {np.percentile(ms, 50):.1f} ms p99 "
+              f"{np.percentile(ms, 99):.1f} ms, {stats['batches']} batches, mean "
+              f"occupancy {stats['mean_batch_occupancy']:.3f}, device_seconds "
+              f"{stats['device_seconds']:.3f} s = {stats['device_seconds'] / wall:.3f} "
+              f"of the wall", flush=True)
+        del server, predict
+        torch.cuda.empty_cache()
+
+
+def read_csv(pattern: str):
+    paths = glob.glob(pattern)
+    check(len(paths) == 1, f"one CSV matches {pattern}")
+    with open(paths[0]) as f:
+        return list(csv.DictReader(f))
+
+
+def phase_serve_cli(root: str, ckpt: str, mixed_dir: str, source_dir: str) -> None:
+    """``python -m crosstalk_tpu_torch.cli.serve`` as a subprocess, scored
+    over the serving wire by the predict and remote-eval CLIs."""
+    import queue
+    import re
+    import signal
+    import threading
+
+    from crosstalk_tpu_torch.cli.predict import main as predict_main
+    from crosstalk_tpu_torch.cli.remote_eval import main as remote_eval_main
+    from crosstalk_tpu_torch.serve.client import CrosstalkClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crosstalk_tpu_torch.cli.serve", "-p", ckpt, "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=here)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    try:
+        url, seen = None, []
+        deadline = time.monotonic() + 120
+        while url is None and time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                break
+            seen.append(line)
+            if line.startswith("Serving on "):
+                url = line.split()[2]
+        check(url is not None, "serve CLI printed its 'Serving on' line within 120 s"
+              + ("" if url else ":\n" + "".join(seen[-20:])))
+        print(f"serve CLI subprocess listening after {time.perf_counter() - t0:.2f} s "
+              f"({CARD})", flush=True)
+        health = CrosstalkClient(url).health()
+        check(health.get("status") == "ok" and health.get("path") == "bf16-serving",
+              f"serve CLI /healthz: {health}")
+
+        t1 = time.perf_counter()
+        rc = predict_main(["-m", mixed_dir, "-s", source_dir, "--url", url,
+                           "--output_base", os.path.join(root, "url")])
+        url_s = time.perf_counter() - t1
+        check(rc == 0, f"predict --url exit code {rc}")
+        t1 = time.perf_counter()
+        rc = remote_eval_main(["-m", mixed_dir, "-s", source_dir, "--url", url,
+                               "-o", os.path.join(root, "remote")])
+        remote_s = time.perf_counter() - t1
+        check(rc == 0, f"remote_eval exit code {rc}")
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            code = None
+        check(code == 0, f"serve CLI exits {code} within 30 s of SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+    rc = predict_main(["-m", mixed_dir, "-s", source_dir, "-p", ckpt, "--fast",
+                       "-b", str(BATCH), "--output_base", os.path.join(root, "local")])
+    check(rc == 0, f"local --fast predict exit code {rc}")
+    local = {r["Image_Key"]: float(r["Predicted_Alpha"])
+             for r in read_csv(os.path.join(root, "local", "predict_run_*", "predictions_*.csv"))}
+    remote = read_csv(os.path.join(root, "url", "predict_run_*", "predictions_*.csv"))
+    check(len(remote) == len(local) == N_PAIRS, f"{len(remote)} --url rows, {len(local)} local")
+    err = max(abs(float(r["Predicted_Alpha"]) - local[r["Image_Key"]]) for r in remote)
+    check(err <= SERVE_TOL, f"predict --url (f16 wire) vs local --fast: max |diff| "
+                            f"{err:.3e} (tol {SERVE_TOL})")
+    by_id = {int(re.match(r"image_(\d+)_alpha", k).group(1)): v for k, v in local.items()}
+    evals = read_csv(os.path.join(root, "remote", "eval_run_*", "test_predictions_*.csv"))
+    check(len(evals) == N_PAIRS, f"remote_eval wrote {len(evals)} rows")
+    err = max(abs(float(r["Predicted_Label"]) - by_id[int(r["Image_ID"])]) for r in evals)
+    check(err <= SERVE_TOL, f"remote_eval Predicted_Label vs local --fast: max |diff| "
+                            f"{err:.3e} (tol {SERVE_TOL})")
+    print(f"serve CLI ({CARD}): predict --url {url_s:.2f} s = {N_PAIRS / url_s:.1f} tiles/s, "
+          f"remote_eval {remote_s:.2f} s = {N_PAIRS / remote_s:.1f} tiles/s "
+          f"(decode, f16 wire, HTTP, CSV)", flush=True)
+
+
+WHOLE_PAIRS = 16
+WHOLE_SIZE = 1024
+
+
+def phase_predict_whole_image(root: str, ckpts: dict, by_path: dict) -> None:
+    """``cli/predict.py --fast --unmix`` over whole 1024x1024 images."""
+    from crosstalk_tpu_torch.cli.predict import _grid_images
+    from crosstalk_tpu_torch.cli.predict import main as predict_main
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.data.index import pair_unlabeled
+    from crosstalk_tpu_torch.data.pipeline import load_tiles
+    from crosstalk_tpu_torch.data.tiff import read_tile, write_tile
+    from crosstalk_tpu_torch.io.torch_convert import load_pth
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+
+    mixed_dir = os.path.join(root, "whole", "Mixed")
+    source_dir = os.path.join(root, "whole", "Source")
+    os.makedirs(mixed_dir)
+    os.makedirs(source_dir)
+    rng = np.random.default_rng(SEED + 5)
+    for i in range(WHOLE_PAIRS):
+        source = rng.random((WHOLE_SIZE, WHOLE_SIZE))
+        mixed = rng.random((WHOLE_SIZE, WHOLE_SIZE)) + rng.uniform(0.01, 0.5) * source
+        write_tile(os.path.join(mixed_dir, f"acq{i:02d}_mixed.tif"), mixed)
+        write_tile(os.path.join(source_dir, f"acq{i:02d}_source.tif"), source)
+    per_image = (WHOLE_SIZE // SIZE) ** 2
+    n_tiles = WHOLE_PAIRS * per_image
+    samples = pair_unlabeled(mixed_dir, source_dir).samples
+    images = load_tiles(samples, jobs=8)
+    crops, _ = _grid_images(images, SIZE)
+    expect = math.ceil(n_tiles / BATCH)
+    for variant, ckpt in ckpts.items():
+        out = os.path.join(root, "whole", variant)
+        fused_input_block.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = predict_main(["-m", mixed_dir, "-s", source_dir, "-p", ckpt, "-o", variant,
+                           "--fast", "-b", str(BATCH), "--unmix", "--output_base", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = by_path[f"predict_{variant}"] = fused_input_block.launches
+        check(rc == 0, f"predict {variant} --fast --unmix exit code {rc}")
+        check(launches == expect, f"predict {variant}: K1 launched {launches} times "
+                                  f"(expected {expect} = ceil({n_tiles}/{BATCH}))")
+        rows = read_csv(os.path.join(out, "predict_run_*", "predictions_*.csv"))
+        check(len(rows) == WHOLE_PAIRS and all(r["Num_Tiles"] == str(per_image) for r in rows),
+              f"predict {variant}: {len(rows)} rows with Num_Tiles {per_image}")
+
+        predict = make_predictor(load_pth(ckpt), ModelConfig(variant=variant), BATCH,
+                                 image_size=SIZE, warmup=False)
+        tile_alphas = predict_in_buckets(predict, [crops], BATCH).reshape(WHOLE_PAIRS, per_image)
+        medians = np.median(tile_alphas, axis=1)
+        alphas = np.array([float(r["Predicted_Alpha"]) for r in rows])
+        err = float(np.abs(alphas - medians).max())
+        check(err <= 1e-6, f"predict {variant}: Predicted_Alpha vs the median of the "
+                           f"predictor's {per_image} tile alphas: max |diff| {err:.2e} (tol 1e-6)")
+        run_dir = os.path.dirname(glob.glob(os.path.join(out, "predict_run_*", "predictions_*.csv"))[0])
+        unmix_err = 0.0
+        for i, r in enumerate(rows):
+            got = read_tile(os.path.join(run_dir, "unmixed", f"{r['Image_Key']}_unmixed.tif"))
+            want = np.clip(images[i, :, :, 0] - float(r["Predicted_Alpha"]) * images[i, :, :, 1],
+                           0.0, None)
+            unmix_err = max(unmix_err, float(np.abs(got - want).max()))
+        check(len(os.listdir(os.path.join(run_dir, "unmixed"))) == WHOLE_PAIRS
+              and unmix_err <= 1e-6,
+              f"predict {variant}: {WHOLE_PAIRS} unmixed TIFFs = clip(mixed - alpha*source, 0): "
+              f"max |diff| {unmix_err:.2e} (tol 1e-6)")
+        print(f"predict {variant} --fast --unmix ({CARD}): {WHOLE_PAIRS} images of "
+              f"{WHOLE_SIZE}x{WHOLE_SIZE}, {n_tiles} tiles, CLI wall {wall:.2f} s = "
+              f"{n_tiles / wall:.1f} tiles/s (decode, grid, forward, CSV, unmixed TIFFs)",
+              flush=True)
 
 
 def main() -> int:
     smi = phase_environment()
     resources = phase_build()
     from crosstalk_tpu_torch.device import set_parity_numerics
-    from crosstalk_tpu_torch.ops.input_block import fused_input_block
 
     set_parity_numerics()  # the plain version's f32 conv must not run in TF32
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     single = phase_k1(gen, two_branch=False)
     double = phase_k1(gen, two_branch=True)
 
-    counters: dict = {}
-    fused_input_block.launches = 0
+    by_path: dict = {}  # K1's launches on each path, counted from 0
     with tempfile.TemporaryDirectory() as root:
-        ckpts = phase_main_path(root, counters)
-        launches = fused_input_block.launches  # read before any timing
-        check(launches > 0, f"main path launched K1 {launches} times")
+        ckpts, mixed_dir, source_dir = phase_main_path(root, by_path)
         for variant, ckpt in ckpts.items():
             time_stages(variant, ckpt)
+        phase_serve(root, ckpts, by_path)
+        phase_serve_cli(root, ckpts["single"], mixed_dir, source_dir)
+        phase_predict_whole_image(root, ckpts, by_path)
+    paths = ["eval_single", "eval_double", "serve_single_f32", "serve_single_f16",
+             "serve_double", "predict_single", "predict_double"]
+    check(sorted(by_path) == sorted(paths) and all(by_path[p] > 0 for p in paths),
+          f"K1 launched on every path: {by_path}")
 
     kernel = {
         "name": "fused_input_block",
         "route": "cuda",
         "source": "crosstalk_tpu_torch/csrc/input_block.cu",
         "replaces": "crosstalk_tpu/ops/pallas/input_block.py:168",
-        "launches": launches,
+        "launches": sum(by_path.values()),
         **single,
         "max_abs_err": max(single["max_abs_err"], double["max_abs_err"]),
-        "launches_by_model": counters,
+        "launches_by_path": by_path,
         "resources_c2": resources,
         "two_branch_block_diagonal": double,
     }

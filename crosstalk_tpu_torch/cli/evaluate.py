@@ -103,13 +103,15 @@ def main(argv=None) -> int:
               "only (the two-branch trunk is fixed at 4 blocks per branch).")
         return 1
 
-    import torch
-
     from crosstalk_tpu_torch.config import ModelConfig
     from crosstalk_tpu_torch.data.index import PairIndex
     from crosstalk_tpu_torch.data.pipeline import TileStore
     from crosstalk_tpu_torch.data.tiff import read_tile
-    from crosstalk_tpu_torch.device import resolve_device, set_parity_numerics
+    from crosstalk_tpu_torch.device import (
+        device_label,
+        resolve_device,
+        set_parity_numerics,
+    )
     from crosstalk_tpu_torch.eval.engine import evaluate_and_save, model_forward
     from crosstalk_tpu_torch.io import artifacts
     from crosstalk_tpu_torch.io.torch_convert import (
@@ -120,9 +122,7 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)  # raises when CUDA is missing
     set_parity_numerics()
-    name = (f"cuda:{torch.cuda.get_device_name(device)}"
-            if device.type == "cuda" else "cpu")
-    print(f"Using device: {name} x1")
+    print(f"Using device: {device_label(device)} x1")
 
     ts = artifacts.timestamp()
     output_dir = artifacts.make_eval_run_dir(args.output_base, ts)

@@ -1,5 +1,6 @@
-"""Filename-pairing data index (the port's copy of the labeled pairing in
-crosstalk_tpu/data/index.py: same regex, same sample order).
+"""Filename-pairing data index (the port's copy of crosstalk_tpu/data/index.py:
+the labeled pairing with the same regex and sample order, and the unlabeled
+pairing by filename stem of the predict CLI).
 
 Reimplements the reference's dataset-discovery semantics (reference
 train_model.py:97-154, duplicated at test-cross-talk-model.py:125-182 — here
@@ -23,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import List
+from typing import List, Optional
 
 FILE_PATTERN = re.compile(r"image_(\d+)_alpha_(\d+\.?\d*)_(mixed|source)\.tif")
 
@@ -96,3 +97,94 @@ class PairIndex:
 
     def __len__(self) -> int:
         return len(self.samples)
+
+
+# --- unlabeled pairing (deployment extension, no reference counterpart) ---
+#
+# The reference can only read tiles whose filenames embed the ground-truth
+# alpha (FILE_PATTERN above, train_model.py:105), so it cannot score new
+# acquisitions: they have no alpha to put in the name. ``pair_unlabeled``
+# pairs tiles by filename stem instead, for the predict CLI (cli/predict.py).
+
+_TIF_EXTS = (".tif", ".tiff")
+_ROLE_TOKENS = {
+    "mixed": ("mixed", "bleed"),
+    "source": ("source", "pure"),
+}
+
+
+def _unlabeled_key(filename: str, role: str) -> Optional[str]:
+    """Pairing key for an unlabeled tile: the lowercased stem, with a
+    trailing role token (``_mixed``/``-bleed``/``.source``/...) stripped so
+    the two directories' conventional namings line up. Keys are
+    case-insensitive; identical filenames in both dirs pair too (no token to
+    strip). Non-TIFF files map to ``None``."""
+    stem, ext = os.path.splitext(filename)
+    if ext.lower() not in _TIF_EXTS:
+        return None
+    low = stem.lower()
+    for token in _ROLE_TOKENS[role]:
+        for sep in ("_", "-", "."):
+            suffix = sep + token
+            if low.endswith(suffix):
+                return low[: -len(suffix)]
+    return low
+
+
+@dataclasses.dataclass(frozen=True)
+class UnlabeledIndex:
+    """Result of ``pair_unlabeled``: paired samples (``scalar_label`` is NaN,
+    there is no ground truth) and the filenames that found no partner."""
+
+    samples: List[Sample]
+    unpaired_mixed: List[str]
+    unpaired_source: List[str]
+
+
+def pair_unlabeled(mixed_dir: str, source_dir: str) -> UnlabeledIndex:
+    """Pair (mixed, source) tiles across two directories by filename stem.
+
+    ``foo_mixed.tif`` pairs with ``foo_source.tif``, ``scan3-bleed.tiff``
+    with ``scan3-source.tiff``, and ``cell7.tif`` with ``cell7.tif``. Keys
+    are case-insensitive (the reported ``image_id`` is the lowercased key).
+    The labeled reference schema pairs too. Raises ``ValueError`` on an
+    ambiguous directory (two files normalizing to one key, including by case
+    alone) or when nothing pairs.
+    """
+    def scan(directory: str, role: str) -> dict:
+        keyed: dict = {}
+        for filename in sorted(os.listdir(directory)):
+            key = _unlabeled_key(filename, role)
+            if key is None:
+                continue
+            if key in keyed:
+                raise ValueError(
+                    f"Ambiguous {role} directory: '{keyed[key]}' and "
+                    f"'{filename}' both normalize to pairing key '{key}'."
+                )
+            keyed[key] = filename
+        return keyed
+
+    mixed = scan(mixed_dir, "mixed")
+    source = scan(source_dir, "source")
+
+    samples = [
+        Sample(
+            image_id=key,
+            scalar_label=float("nan"),
+            mixed_path=os.path.join(mixed_dir, mixed[key]),
+            source_path=os.path.join(source_dir, source[key]),
+        )
+        for key in sorted(mixed.keys() & source.keys())
+    ]
+    if not samples:
+        raise ValueError(
+            "No pairable tiles found: no filename stem (after stripping a "
+            "trailing _mixed/_bleed or _source/_pure token) appears in both "
+            "directories."
+        )
+    return UnlabeledIndex(
+        samples=samples,
+        unpaired_mixed=sorted(mixed[k] for k in mixed.keys() - source.keys()),
+        unpaired_source=sorted(source[k] for k in source.keys() - mixed.keys()),
+    )

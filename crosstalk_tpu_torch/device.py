@@ -24,6 +24,13 @@ def resolve_device(name: Optional[str] = "cuda") -> torch.device:
     return torch.device(name)
 
 
+def device_label(device: torch.device) -> str:
+    """``'cuda:<card name>'`` or ``'cpu'``, as the CLIs print and report it."""
+    if device.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(device)}"
+    return device.type
+
+
 def set_parity_numerics() -> None:
     """Full-precision float32 on the card, as the JAX package's
     ``Precision.HIGHEST`` gives (crosstalk_tpu/models/registry.py:23-26).

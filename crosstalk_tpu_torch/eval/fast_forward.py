@@ -11,7 +11,8 @@ folds a state_dict once and returns ``forward(batch_nhwc) -> (B, 1)``:
     C=1 first blocks runs as ONE block-diagonal call of that kernel;
   * blocks 1+ are bf16 cuDNN convs in channels_last followed by the folded
     affine, LeakyReLU and pool as torch ops in bf16;
-  * the head is bf16 matmuls with the affine taken in f32 after the product.
+  * the head is bf16 matmuls whose products stay in f32, with the affine
+    taken in f32 after the product.
 """
 
 from __future__ import annotations
@@ -79,11 +80,19 @@ def _conv_block_eval(x: torch.Tensor, blk: _Conv, slope: float) -> torch.Tensor:
     return F.max_pool2d(y, 2)
 
 
+def _matmul_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weight.T`` of bf16 operands, kept in f32 as the JAX head does
+    (``preferred_element_type=jnp.float32``): a cuBLAS bf16 GEMM with f32
+    output on the card, the f32 product of the bf16 values on the CPU (each
+    bf16 x bf16 product is exact in f32)."""
+    x = x.to(_BF16)
+    if x.is_cuda:
+        return torch.mm(x, weight.t(), out_dtype=torch.float32)
+    return torch.mm(x.float(), weight.float().t())
+
+
 def _dense_bn_eval(x: torch.Tensor, d: _Dense, slope: float) -> torch.Tensor:
-    # torch.matmul on bf16 returns bf16, so the f32-accumulated product is
-    # rounded to bf16 once before the f32 affine; the JAX head keeps that
-    # product in f32 (preferred_element_type). Within the 5e-3 budget.
-    y = F.linear(x.to(_BF16), d.weight).float() * d.scale + d.bias
+    y = _matmul_f32(x, d.weight) * d.scale + d.bias
     return F.leaky_relu(y, slope)
 
 
@@ -165,7 +174,7 @@ def make_fast_forward(cfg: ModelConfig, state_dict: StateDict) -> Callable:
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         for d in dense:
             h = _dense_bn_eval(h, d, slope)
-        out = F.linear(h.to(_BF16), w_out).float() + b_out
+        out = _matmul_f32(h, w_out) + b_out
         if double:
             out = torch.sigmoid(out) * 0.5
         return out

@@ -115,11 +115,30 @@ def checkpoint_tile_geometry(sd: StateDict, variant: str):
     return spatial, pools
 
 
+def image_size_compatible(sd: StateDict, variant: str, px: int) -> bool:
+    """Whether ``px``-sized tiles feed this checkpoint's head exactly.
+
+    Each max pool floors odd sides, so every px in
+    ``[spatial*2**pools, (spatial+1)*2**pools - 1]`` pools down to the same
+    head spatial size."""
+    spatial, pools = checkpoint_tile_geometry(sd, variant)
+    x = px
+    for _ in range(pools):
+        x //= 2
+    return x == spatial
+
+
 def infer_image_size(sd: StateDict, variant: str) -> int:
     """Tile size a checkpoint was trained at (the smallest compatible size
     when it is not a multiple of ``2**pools``)."""
     spatial, pools = checkpoint_tile_geometry(sd, variant)
     return spatial * (2 ** pools)
+
+
+def compatible_px_range(sd: StateDict, variant: str) -> Tuple[int, int]:
+    """-> (smallest, largest) tile size that ``image_size_compatible`` takes."""
+    spatial, pools = checkpoint_tile_geometry(sd, variant)
+    return spatial * 2 ** pools, (spatial + 1) * 2 ** pools - 1
 
 
 def model_config_for_checkpoint(

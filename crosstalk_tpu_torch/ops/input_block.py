@@ -20,6 +20,7 @@ tensor, so ``out.permute(0, 3, 1, 2)`` hands it to cuDNN without a copy.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -174,7 +175,8 @@ def fused_input_block_packed(x, packed: PackedInputBlock, *, slope: float = 0.01
             out.data_ptr(), b, h, w, c, f, float(slope), stream)
     if rc != 0:
         raise RuntimeError(f"fused_input_block kernel launch failed: CUDA error {rc}")
-    fused_input_block.launches += 1
+    with _launches_lock:  # a server warms a reloaded model on another thread
+        fused_input_block.launches += 1
     return out
 
 
@@ -198,3 +200,4 @@ def fused_input_block(x, kernel, scale, bias, *, slope: float = 0.01):
 
 
 fused_input_block.launches = 0
+_launches_lock = threading.Lock()

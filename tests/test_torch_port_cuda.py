@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernel against its plain PyTorch
-version. They skip on a host without an NVIDIA card (the kernel has no CPU
-mode). This file imports neither JAX nor the test fixtures that do, so where
+version, and the serving path (predictor, batcher thread, f16 transport)
+on the card. They skip on a host without an NVIDIA card (the kernel has no
+CPU mode). This file imports neither JAX nor the test fixtures that do, so where
 JAX is not installed it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -m cuda
@@ -109,3 +110,99 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         fused_input_block(x.transpose(1, 2), kernel, scale, bias)
     with pytest.raises(ValueError):
         fused_input_block(x, kernel, scale.cpu(), bias)
+
+
+# --- the serving path on the card ------------------------------------------
+
+def _small_checkpoint(variant):
+    """A small port model (8 filters, 3 blocks at 32 px) with BN statistics
+    moved off their init by three train-mode forwards on the CPU."""
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.models.registry import build_model, init_model
+
+    cfg = ModelConfig(variant=variant, initial_filters=8, num_conv_blocks=3,
+                      initial_filters_per_branch=4)
+    model = init_model(build_model(cfg, image_size=32), torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    model.train()
+    with torch.no_grad():
+        for _ in range(3):
+            model(torch.rand(4, 2, 32, 32, generator=gen))
+    return cfg, model.eval().state_dict()
+
+
+def _raw_tiles(n, seed=0):
+    import numpy as np
+
+    return (np.random.default_rng(seed).random((n, 32, 32, 2)) * 1800 + 100).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["single", "double"])
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "fast"])
+def test_cuda_predictor_matches_cpu_predictor(cuda_device, variant, fast):
+    """The same weights through ``make_predictor`` on the card and on the
+    CPU: 1e-5 for the f32 module (TF32 off), 5e-4 for the bf16 fast path
+    (K1 and cuDNN against the plain version and the CPU convs)."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+
+    cfg, sd = _small_checkpoint(variant)
+    before = fused_input_block.launches
+    on_card = make_predictor(sd, cfg, (2, 4), image_size=32, fast=fast, device="cuda")
+    assert fused_input_block.launches - before == (2 if fast else 0)  # warmup
+    on_cpu = make_predictor(sd, cfg, (2, 4), image_size=32, fast=fast, device="cpu")
+    raw = _raw_tiles(4)
+    got, want = on_card(raw), on_cpu(raw)
+    assert got.dtype == np.float32 and got.shape == (4,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4 if fast else 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_from_the_batcher_thread_launches_k1(cuda_device):
+    import numpy as np
+
+    from crosstalk_tpu_torch.serve.batcher import DynamicBatcher
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+
+    cfg, sd = _small_checkpoint("single")
+    predict = make_predictor(sd, cfg, (2, 4), image_size=32, device="cuda")
+    raw = _raw_tiles(7, seed=1)
+    direct = np.concatenate([predict(raw[:4]), predict(raw[4:6]),
+                             predict(np.concatenate([raw[6:], raw[:1]]))[:1]])
+    batcher = DynamicBatcher(predict, batch_size=4, tile_shape=(32, 32, 2),
+                             max_delay_ms=1.0, bucket_sizes=[2])
+    try:
+        before = fused_input_block.launches
+        got = batcher.submit(raw).result(timeout=120)
+        batches = batcher.stats()["batches"]
+    finally:
+        batcher.close()
+    assert batches >= 2 and fused_input_block.launches - before == batches
+    np.testing.assert_allclose(got, direct, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_server_with_f16_transport_returns_finite_alphas(cuda_device):
+    import numpy as np
+
+    from crosstalk_tpu_torch.serve.client import CrosstalkClient
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+    from crosstalk_tpu_torch.serve.server import CrosstalkServer
+
+    cfg, sd = _small_checkpoint("double")
+    predict = make_predictor(sd, cfg, 4, image_size=32, input_dtype=np.float16,
+                             device="cuda")
+    server = CrosstalkServer(predict, batch_size=4, image_size=32, port=0,
+                             max_delay_ms=1.0, transport_dtype="float16")
+    try:
+        server.start_background()
+        client = CrosstalkClient("http://%s:%d" % server.address, timeout=120)
+        raw = _raw_tiles(5, seed=2).astype(np.float64) * 40  # beyond f16 range
+        for wire in ("float16", "float32"):
+            alphas = client.predict(raw, dtype=wire)
+            assert alphas.shape == (5,) and np.isfinite(alphas).all()
+        assert client.stats()["transport_dtype"] == "float16"
+    finally:
+        server.shutdown()

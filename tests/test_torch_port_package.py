@@ -43,6 +43,17 @@ def test_forbidden_prefix_rule(name, forbidden):
     assert bool(FORBIDDEN.match(name)) == forbidden
 
 
+def test_fresh_process_check_covers_the_serving_modules():
+    names = set(_module_names())
+    assert {
+        "crosstalk_tpu_torch.serve", "crosstalk_tpu_torch.serve.batcher",
+        "crosstalk_tpu_torch.serve.client", "crosstalk_tpu_torch.serve.predictor",
+        "crosstalk_tpu_torch.serve.server", "crosstalk_tpu_torch.serve.wire",
+        "crosstalk_tpu_torch.io.export", "crosstalk_tpu_torch.cli.serve",
+        "crosstalk_tpu_torch.cli.predict", "crosstalk_tpu_torch.cli.remote_eval",
+    } <= names
+
+
 def test_import_loads_no_jax_in_a_fresh_process():
     mods = _module_names() + ["chip_smoke"]
     code = (
