@@ -36,7 +36,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      predict, then SIGTERM and exit 0;
   7. ``cli/predict.py --fast --unmix`` over 16 seeded 1024x1024 pairs (a
      4x4 grid of tiles each) with both models: rows, K1's launches, the
-     median of the predictor's tile alphas, the unmixed TIFFs.
+     median of the predictor's tile alphas, the unmixed TIFFs;
+  8. training: the train CLI (``crosstalk_tpu_torch.cli.train.main``, bf16,
+     ``-b 64 -n 2 -r onecycle``) on both full-width models over the phase-4
+     pairs (179 train / 38 val / 39 test): artifact names, log rows, finite
+     losses, both .pth files loading; ``--resume`` of the single-branch run
+     to 3 epochs against its saved state; the trained checkpoints through
+     the eval CLI, ``--fast`` against f32 (K1 launched); an f32 step on the
+     card against the same step on the CPU; bf16 step timings at the CLI's
+     default ``-b 256`` on device-resident tiles (ms, tiles/s, peak memory,
+     share of the bf16 peak, the split into data, forward, backward and
+     optimizer, steps/s with and without a per-step ``.item()``, one
+     ``--grad_accum 4`` step and its peak memory).
 
 Each path that runs K1 starts with its launch count at 0 and is read just
 after (``launches_by_path`` in the kernels JSON). Every number is printed
@@ -767,7 +778,444 @@ def phase_predict_whole_image(root: str, ckpts: dict, by_path: dict) -> None:
               flush=True)
 
 
+TRAIN_BATCH = 64       # the CLI runs: 179 train pairs -> 2 steps per epoch
+STEP_BATCH = 256       # the CLI's default -b, for the step timings
+TIMED_STEPS = 5
+
+
+def conv_flops_per_tile(variant: str) -> int:
+    """Forward FLOPs of one 256x256 tile (2 per multiply-add): the 3x3
+    convs and the head's GEMMs; BN, activations and pools are not counted."""
+    if variant == "single":
+        widths = [2, 128, 256, 512, 512, 512, 512]
+        branches = 1
+    else:
+        widths = [1, 64, 128, 256, 512]
+        branches = 2
+    flops, side = 0, SIZE
+    for cin, cout in zip(widths, widths[1:]):
+        flops += branches * 2 * 9 * cin * cout * side * side
+        side //= 2
+    flat = branches * widths[-1] * side * side
+    return flops + 2 * (flat * 512 + 512 * 128 + 128)
+
+
+def train_cli(argv, label: str) -> float:
+    """``crosstalk_tpu_torch.cli.train.main`` -> its wall s."""
+    from crosstalk_tpu_torch.cli.train import main as train_main
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"train CLI {label}: exit code {rc}")
+    return wall
+
+
+def read_log(run_dir: str):
+    rows = list(csv.reader(open(glob.glob(os.path.join(run_dir, "training_log_*.csv"))[0])))
+    return rows[5:]
+
+
+def check_run_dir(variant: str, run_dir: str, epochs: int) -> dict:
+    """The JAX package's artifact names, finite losses, one log row per
+    epoch, and both .pth files loading into ``build_model``."""
+    import re
+
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.io.torch_convert import load_pth
+    from crosstalk_tpu_torch.models.registry import build_model
+
+    ts = re.compile(r"\d{4}-\d{2}-\d{2}_\d{2}-\d{2}-\d{2}")
+    names = {ts.sub("TS", os.path.relpath(os.path.join(d, f), run_dir))
+             for d, _, files in os.walk(run_dir) for f in files}
+    tail = f"TS_{TRAIN_BATCH}_0.0001"
+    want = {"params.txt", "model_architecture.txt", f"training_log_{tail}_onecycle.csv",
+            "best_model_onecycle.pth", f"crosstalk_regression_model_trained_{tail}.pth",
+            "checkpoints/train_ckpt.bin", "checkpoints/train_ckpt.prev.bin",
+            *(f"{s}_predictions_{tail}.csv" for s in ("test", "train", "val"))}
+    plots = {"lr_schedule_onecycle.png", f"training_validation_loss_{tail}.png",
+             *(f"{s}_predictions_plot_{tail}.png" for s in ("test", "train", "val"))}
+    extra = names - want - {"params_resume.txt"}
+    check(want <= names and extra <= plots,
+          f"train {variant}: the JAX package's artifact names ({len(want)} files; "
+          f"{len(extra)} of {len(plots)} plots, which need matplotlib)")
+    rows = read_log(run_dir)
+    losses = np.array([[float(v) for v in r[1:3]] for r in rows])
+    check(len(rows) == epochs and np.isfinite(losses).all(),
+          f"train {variant}: {len(rows)} log rows (expected {epochs}), finite losses "
+          f"{losses.tolist()}")
+    for pattern in ("best_model_*.pth", "crosstalk_regression_model_trained_*.pth"):
+        path = glob.glob(os.path.join(run_dir, pattern))[0]
+        build_model(ModelConfig(variant=variant), image_size=SIZE).load_state_dict(load_pth(path))
+    print(f"PASS: train {variant}: best and final .pth load into build_model", flush=True)
+    return {"final": glob.glob(os.path.join(run_dir, "crosstalk_regression_model_trained_*.pth"))[0]}
+
+
+def check_resume(run_dir: str, mixed_dir: str, source_dir: str, wall_before: float) -> None:
+    """--resume of the single-branch run from 2 to 3 epochs."""
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.io import checkpoint
+    from crosstalk_tpu_torch.models.registry import build_model
+    from crosstalk_tpu_torch.train.steps import init_train_state
+
+    payload, meta = checkpoint.load_checkpoint(run_dir)
+    rows_before = read_log(run_dir)
+    # the state a resume restores (train/loop.py's path) equals the saved one
+    state = init_train_state(build_model(ModelConfig(), image_size=SIZE, device="cuda"),
+                             OptimConfig())
+    checkpoint.restore_state(state, payload)
+    same = all(torch.equal(v.cpu(), payload["model"][k])
+               for k, v in state.model.state_dict().items())
+    opt_sd = state.optimizer.state_dict()["state"]
+    same = same and all(torch.equal(opt_sd[i][k].cpu(), payload["optimizer"]["state"][i][k])
+                        for i in opt_sd for k in opt_sd[i])
+    check(same and state.step == payload["step"] == meta["global_step"],
+          f"resume: restored model, Adam moments and step ({state.step}) equal the saved ones")
+    del state, payload
+    torch.cuda.empty_cache()
+
+    wall = train_cli(["-m", mixed_dir, "-s", source_dir, "-n", "3", "-j", "8",
+                      "--resume", run_dir], "single --resume -n 3")
+    _, new_meta = checkpoint.load_checkpoint(run_dir)
+    rows = read_log(run_dir)
+    steps_per_epoch = meta["global_step"] // meta["epoch"]
+    check(rows[:2] == rows_before and len(rows) == 3 and new_meta["epoch"] == 3
+          and new_meta["global_step"] == meta["global_step"] + steps_per_epoch
+          and new_meta["lr_history"][:2] == meta["lr_history"]
+          and new_meta["schedule"]["epoch"] == meta["schedule"]["epoch"] + 1,
+          f"resume: started at epoch 3 from step {meta['global_step']}, log rows 1-2 kept, "
+          f"3 rows, now step {new_meta['global_step']} ({wall:.2f} s, first run {wall_before:.2f} s)")
+
+
+def step_timings(variant: str, resident) -> dict:
+    """bf16 train steps at -b 256 on device-resident tiles: ms per step
+    (CUDA events), tiles/s, peak memory, share of the bf16 peak, steps/s
+    with and without a per-step .item(), the split of a step into data,
+    forward, backward and optimizer, and one --grad_accum 4 step."""
+    import torch.nn.functional as F
+
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.data.transforms import prepare_train_batch
+    from crosstalk_tpu_torch.models.registry import build_model, init_model
+    from crosstalk_tpu_torch.train.steps import init_train_state, make_train_step
+
+    model = build_model(ModelConfig(variant=variant), image_size=SIZE)
+    init_model(model, torch.Generator().manual_seed(SEED))
+    state = init_train_state(model.cuda(), OptimConfig())
+    step = make_train_step(state, compute_dtype="bf16", seed=SEED)
+    epoch = iter(range(10 ** 6))
+
+    def batch():
+        return next(resident.batches(STEP_BATCH, shuffle=True, drop_last=True,
+                                     seed=SEED, epoch=next(epoch)))
+
+    for _ in range(2):  # warmup: cuDNN algorithm search, allocator
+        b = batch()
+        step(b.inputs, b.labels, 1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches = [batch() for _ in range(TIMED_STEPS)]
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for b in batches:
+        loss = step(b.inputs, b.labels, 1e-4)
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(loss)), f"step timing {variant}: finite loss {float(loss):.4f}")
+
+    rates = {}
+    for sync in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            loss = step(b.inputs, b.labels, 1e-4)
+            if sync:
+                loss.item()
+        torch.cuda.synchronize()
+        rates[sync] = TIMED_STEPS / (time.perf_counter() - t0)
+
+    # the step's parts, one after another on the stream (CUDA events)
+    model, opt = state.model, state.optimizer
+    parts = dict.fromkeys(("data", "forward", "backward", "optimizer"), 0.0)
+    for i in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        b = batch()
+        x = prepare_train_batch(b.inputs, SEED, i, True).permute(0, 3, 1, 2)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            preds = model.train()(x)
+        loss = F.mse_loss(preds.float(), b.labels)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        ev[4].synchronize()
+        for k, (a, c) in zip(parts, zip(ev, ev[1:])):
+            parts[k] += a.elapsed_time(c) / 3
+
+    accum_step = make_train_step(state, compute_dtype="bf16", seed=SEED, grad_accum=4)
+    b = batch()
+    accum_step(b.inputs, b.labels, 1e-4)  # warmup at the microbatch shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = batch()
+    e0.record()
+    accum_step(b.inputs, b.labels, 1e-4)
+    e1.record()
+    e1.synchronize()
+    accum_ms, accum_peak = e0.elapsed_time(e1), torch.cuda.max_memory_allocated()
+
+    flops_step = 3 * conv_flops_per_tile(variant) * STEP_BATCH
+    bound_ms = flops_step / BF16_FLOP_PER_S * 1e3
+    out = {
+        "ms_per_step": ms, "tiles_per_s": STEP_BATCH / ms * 1e3,
+        "peak_gib": peak / 2 ** 30, "fwd_gflop_per_tile": conv_flops_per_tile(variant) / 1e9,
+        "bf16_peak_share": bound_ms / ms,
+        "steps_per_s_no_sync": rates[False], "steps_per_s_item_each_step": rates[True],
+        "split_ms": parts, "grad_accum4_ms": accum_ms,
+        "grad_accum4_peak_gib": accum_peak / 2 ** 30,
+    }
+    print(f"train step {variant} bf16 -b {STEP_BATCH} ({CARD}): {ms:.2f} ms/step = "
+          f"{out['tiles_per_s']:.0f} tiles/s, peak {out['peak_gib']:.2f} GiB, "
+          f"{out['fwd_gflop_per_tile']:.2f} GFLOP/tile forward (x3 per train step) -> "
+          f"{bound_ms:.2f} ms at the bf16 peak = {out['bf16_peak_share']:.3f} of it; "
+          f"steps/s {rates[False]:.3f} without and {rates[True]:.3f} with a per-step "
+          f".item(); split ms: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f"; --grad_accum 4 step {accum_ms:.2f} ms, peak {out['grad_accum4_peak_gib']:.2f} GiB",
+          flush=True)
+    check(accum_peak < peak, f"step timing {variant}: --grad_accum 4 peak "
+          f"{accum_peak / 2 ** 30:.2f} GiB < {peak / 2 ** 30:.2f} GiB")
+    del state, step, accum_step, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def shadowed_biases(model) -> set:
+    """The biases of the layers a BatchNorm directly follows: train-mode BN
+    subtracts the batch mean, so their gradient is 0 up to rounding."""
+    out = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            for i, (a, b) in enumerate(zip(mod, list(mod)[1:])):
+                if (isinstance(b, torch.nn.modules.batchnorm._BatchNorm)
+                        and getattr(a, "bias", None) is not None):
+                    out.add(f"{name}.{i}.bias")
+    return out
+
+
+def f32_model(device: str, dtype: torch.dtype):
+    """The full-width single-branch model in f32 mode (dropout 0) with the
+    same seeded weights on every device -> its TrainState."""
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.models.registry import build_model, init_model
+    from crosstalk_tpu_torch.train.steps import init_train_state
+
+    model = build_model(ModelConfig(compute_dtype="f32", dropout_single=0.0), image_size=SIZE)
+    init_model(model, torch.Generator().manual_seed(SEED + 6))
+    return init_train_state(model.to(device, dtype), OptimConfig())
+
+
+def f32_trajectory(device: str, dtype: torch.dtype, lr: float, steps: int = 3):
+    """``steps`` f32-mode steps (TF32 off, flips off, dropout 0) of the
+    full-width single-branch model at batch 4 -> (losses, eval predictions
+    afterwards, the first step's gradient of each parameter as float64 on
+    the host); the same seeded weights and tiles on every device."""
+    from crosstalk_tpu_torch.train.steps import make_train_step
+
+    state = f32_model(device, dtype)
+    step = make_train_step(state, compute_dtype="f32", augment=False)
+    rng = np.random.default_rng(SEED + 6)
+    losses, grads = [], {}
+    for i in range(steps):
+        raw = torch.from_numpy((rng.random((4, SIZE, SIZE, 2)) * 1800 + 100).astype(np.float32))
+        y = torch.from_numpy(rng.uniform(0, 0.5, (4, 1)).astype(np.float32))
+        losses.append(float(step(raw.to(device, dtype), y.to(device, dtype), lr)))
+        if i == 0:
+            grads = {n: p.grad.double().cpu() for n, p in state.model.named_parameters()}
+    x = torch.from_numpy(rng.random((4, 2, SIZE, SIZE)).astype(np.float32))
+    with torch.no_grad():
+        preds = state.model.eval()(x.to(device, dtype)).double().cpu()
+    return np.array(losses), preds, grads
+
+
+def worst_leaf(a: dict, b: dict, ref: dict, skip: set):
+    """max over parameters of |a - b| / |ref| (L2 norms; NaN reads as inf)
+    -> (value, name)."""
+    return max((float(torch.nan_to_num((a[k] - b[k]).norm() / ref[k].norm(), nan=math.inf)), k)
+               for k in ref if k not in skip)
+
+
+def adam_step_card_vs_cpu(grads: dict, lr: float) -> dict:
+    """One step of the train step's optimizer (Adam with coupled L2) on the
+    card and on the CPU, from the same weights and the same gradients: the
+    updates as a share of lr, and both moments, per parameter."""
+    after = {}
+    for device in ("cuda", "cpu"):
+        state = f32_model(device, torch.float32)
+        before = {n: p.detach().double().cpu() for n, p in state.model.named_parameters()}
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        for n, p in state.model.named_parameters():
+            p.grad = grads[n].float().to(device)
+        state.optimizer.step()
+        names = [n for n, _ in state.model.named_parameters()]
+        moments = state.optimizer.state_dict()["state"]
+        after[device] = (
+            {n: (p.detach().double().cpu() - before[n]) / lr
+             for n, p in state.model.named_parameters()},
+            {f"{names[i]}.{k}": moments[i][k].double().cpu()
+             for i in moments for k in ("exp_avg", "exp_avg_sq")},
+        )
+        del state
+    (upd_card, mom_card), (upd_cpu, mom_cpu) = after["cuda"], after["cpu"]
+    upd = max((float((upd_card[k] - upd_cpu[k]).abs().max()), k) for k in upd_cpu)
+    mom = worst_leaf(mom_card, mom_cpu, mom_cpu, set())
+    check(upd[0] <= 1e-3 and mom[0] <= 1e-5,
+          f"Adam+L2 step, card vs CPU on the same full-width weights and gradients, lr {lr:g} "
+          f"({CARD}): update max |diff| / lr {upd[0]:.2e} ({upd[1]}; tol 1e-3), moments "
+          f"worst leaf |diff| / |CPU| {mom[0]:.2e} ({mom[1]}; tol 1e-5)")
+    return {"update_diff_over_lr": upd[0], "moment_rel": mom[0]}
+
+
+def f32_step_card_vs_cpu() -> dict:
+    """The f32 step on the card against the same steps on the CPU, with a
+    float64 run on the card beside them.
+
+    The first step's gradients are compared per parameter: deterministic,
+    and ahead of Adam, whose first update is lr times the sign of the
+    gradient and so amplifies rounding in the gradient's small elements.
+    In float64 the card's backward must equal the CPU's; in f32 the card's
+    gradients must be as close to float64 as the CPU's are (f32 itself is
+    1-2e-3 from float64 in block 0 at this size, on either device). The
+    optimizer is held apart, from identical gradients. Over three steps, at
+    full width with batch 4, lr 1e-3 is chaotic: any f32 run leaves the
+    float64 trajectory by more than the loss and prediction bounds
+    (printed, not checked); those bounds are checked at lr 1e-5."""
+    out = {}
+    for lr in (1e-5, 1e-3):
+        card, card_p, card_g = f32_trajectory("cuda", torch.float32, lr)
+        cpu, cpu_p, cpu_g = f32_trajectory("cpu", torch.float32, lr)
+        f64, f64_p, f64_g = f32_trajectory("cuda", torch.float64, lr)
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        err = float((card_p - cpu_p).abs().max())
+        rel64 = float(np.max(np.abs(card - f64) / np.abs(f64)))
+        err64 = float((card_p - f64_p).abs().max())
+        out[lr] = {"loss_rel_card_vs_cpu": rel, "pred_card_vs_cpu": err,
+                   "loss_rel_card_vs_f64": rel64, "pred_card_vs_f64": err64}
+        msg = (f"f32 train step lr {lr:g}, card vs CPU (full-width single-branch, batch 4, "
+               f"3 steps, {CARD}): loss max rel diff {rel:.2e}, eval predictions max "
+               f"|diff| {err:.2e}; card f32 vs card float64: {rel64:.2e}, {err64:.2e}")
+        finite = bool(np.isfinite(card).all() and np.isfinite(cpu).all())
+        if lr == 1e-5:
+            check(finite and rel <= 2e-3 and err <= 1e-4, msg + " (tol 2e-3, 1e-4)")
+            _, _, cpu64_g = f32_trajectory("cpu", torch.float64, lr, steps=1)
+            skip = shadowed_biases(f32_model("cpu", torch.float32).model)
+            g = {"f64_card_vs_cpu": worst_leaf(f64_g, cpu64_g, cpu64_g, skip),
+                 "card_vs_cpu": worst_leaf(card_g, cpu_g, f64_g, skip),
+                 "card_vs_f64": worst_leaf(card_g, f64_g, f64_g, skip),
+                 "cpu_vs_f64": worst_leaf(cpu_g, f64_g, f64_g, skip)}
+            out["grad_rel"] = {k: v[0] for k, v in g.items()}
+            check(g["f64_card_vs_cpu"][0] <= 1e-9
+                  and g["card_vs_f64"][0] <= 2 * g["cpu_vs_f64"][0]
+                  and g["card_vs_cpu"][0] <= 5e-3,
+                  f"first-step gradients per parameter, worst leaf |diff| / |float64| "
+                  f"(full-width single-branch, batch 4, {len(f64_g) - len(skip)} parameters; "
+                  f"{len(skip)} biases a BatchNorm follows left out; {CARD}): float64 card vs "
+                  f"CPU {g['f64_card_vs_cpu'][0]:.2e} ({g['f64_card_vs_cpu'][1]}; tol 1e-9); "
+                  f"f32 card vs float64 {g['card_vs_f64'][0]:.2e} ({g['card_vs_f64'][1]}; tol "
+                  f"2x the CPU's), f32 CPU vs float64 {g['cpu_vs_f64'][0]:.2e} "
+                  f"({g['cpu_vs_f64'][1]}); f32 card vs f32 CPU {g['card_vs_cpu'][0]:.2e} "
+                  f"({g['card_vs_cpu'][1]}; tol 5e-3)")
+            out["adam"] = adam_step_card_vs_cpu(cpu_g, 1e-3)
+        else:
+            check(finite, msg + " (finite; chaotic at this lr, not held to the bounds)")
+    return out
+
+
+def phase_train(root: str, mixed_dir: str, source_dir: str, by_path: dict) -> dict:
+    """Phase 8: the train CLI on both models at full width, --resume, the
+    trained checkpoints through the eval CLI's --fast, an f32 step against
+    the CPU, and bf16 step timings at the CLI's default batch."""
+    from crosstalk_tpu_torch.data.index import PairIndex
+    from crosstalk_tpu_torch.data.pipeline import DeviceDataset, TileStore
+    from crosstalk_tpu_torch.io.torch_convert import load_pth, save_pth
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+
+    t_phase = time.perf_counter()
+    walls, finals = {}, {}
+    for variant in ("single", "double"):
+        out = os.path.join(root, f"train_{variant}")
+        walls[variant] = train_cli(
+            ["-m", mixed_dir, "-s", source_dir, "-b", str(TRAIN_BATCH), "-n", "2",
+             "-r", "onecycle", "-o", variant, "-j", "8", "--output_base", out],
+            f"{variant} -b {TRAIN_BATCH} -n 2 -r onecycle")
+        (run_dir,) = glob.glob(os.path.join(out, "training_run_*"))
+        finals[variant] = check_run_dir(variant, run_dir, 2)["final"]
+        print(f"train CLI {variant} ({CARD}): {walls[variant]:.2f} s wall (decode, init, "
+              f"2 epochs, checkpoints, 3-split evaluation)", flush=True)
+        if variant == "single":
+            check_resume(run_dir, mixed_dir, source_dir, walls[variant])
+            check_run_dir(variant, run_dir, 3)
+
+    expect = math.ceil(N_PAIRS / BATCH)
+    for variant, final in finals.items():
+        # the trained weights as they are, and with the scale of every other
+        # block-0 BN channel negated: two epochs learn no negative scale, and
+        # K1 folds the scale into the conv before its phase max, so a
+        # negative one must turn that max into a min
+        sd = load_pth(final)
+        prefixes = (["conv_layers.1."] if variant == "single" else
+                    ["bleed_branch.conv_blocks.1.", "source_branch.conv_blocks.1."])
+        learned = sum(int((sd[p + "weight"] < 0).sum()) for p in prefixes)
+        for p in prefixes:
+            sd[p + "weight"][::2] *= -1
+        negated = os.path.join(root, f"trained_{variant}_negated_bn.pth")
+        save_pth(negated, sd)
+        n_neg = sum(int((sd[p + "weight"] < 0).sum()) for p in prefixes)
+        n_all = sum(sd[p + "weight"].numel() for p in prefixes)
+        for path, ckpt, what in (
+                (f"eval_trained_{variant}", final,
+                 f"trained BN statistics, block-0 BN scales: {learned} negative of {n_all}"),
+                (f"eval_trained_{variant}_negated_bn", negated,
+                 f"trained BN statistics, block-0 BN scales: {n_neg} negative of {n_all}")):
+            common = ["-m", mixed_dir, "-s", source_dir, "-p", ckpt, "-j", "8",
+                      "--batch_size", str(BATCH), "--device", "cuda", "-o", variant]
+            fused_input_block.launches = 0
+            fast_rows, _ = run_cli(common + ["--output_base", os.path.join(root, f"{path}_fast"),
+                                             "--fast"])
+            launches = by_path[path] = fused_input_block.launches
+            check(launches == expect, f"{path} --fast: K1 launched {launches} times "
+                                      f"(expected {expect})")
+            f32_rows, _ = run_cli(common + ["--output_base", os.path.join(root, f"{path}_f32")])
+            fast_p = np.array([float(r["Predicted_Label"]) for r in fast_rows])
+            f32_p = np.array([float(r["Predicted_Label"]) for r in f32_rows])
+            mae = float(np.abs(fast_p - f32_p).mean())
+            check(len(fast_rows) == len(f32_rows) == N_PAIRS and np.isfinite(fast_p).all()
+                  and mae <= 2e-3,
+                  f"{path}: --fast vs f32 MAE {mae:.3e} (tol 2e-3) on {what}")
+
+    card_vs_cpu = f32_step_card_vs_cpu()
+
+    store = TileStore(PairIndex(mixed_dir, source_dir).samples, jobs=8)
+    resident = DeviceDataset(store, torch.device("cuda"))
+    timings = {v: step_timings(v, resident) for v in ("single", "double")}
+    del resident
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 8 (training) wall: {wall:.1f} s ({CARD})", flush=True)
+    return {"cli_wall_s": walls, "f32_card_vs_cpu": card_vs_cpu, "step": timings,
+            "phase_wall_s": wall}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_environment()
     resources = phase_build()
     from crosstalk_tpu_torch.device import set_parity_numerics
@@ -785,10 +1233,15 @@ def main() -> int:
         phase_serve(root, ckpts, by_path)
         phase_serve_cli(root, ckpts["single"], mixed_dir, source_dir)
         phase_predict_whole_image(root, ckpts, by_path)
+        training = phase_train(root, mixed_dir, source_dir, by_path)
     paths = ["eval_single", "eval_double", "serve_single_f32", "serve_single_f16",
-             "serve_double", "predict_single", "predict_double"]
+             "serve_double", "predict_single", "predict_double",
+             "eval_trained_single", "eval_trained_double",
+             "eval_trained_single_negated_bn", "eval_trained_double_negated_bn"]
     check(sorted(by_path) == sorted(paths) and all(by_path[p] > 0 for p in paths),
           f"K1 launched on every path: {by_path}")
+    print(json.dumps({"training": training}), flush=True)
+    print(f"chip_smoke.py wall: {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
 
     kernel = {
         "name": "fused_input_block",

@@ -1,10 +1,12 @@
-"""Model configuration: the port's own copy of ``ModelConfig`` (the JAX
-package's ``crosstalk_tpu/config.py``), so that the port imports nothing of
-that package."""
+"""Configuration dataclasses: the port's own copy of the JAX package's
+``crosstalk_tpu/config.py`` (``ModelConfig``, ``OptimConfig``,
+``TrainConfig`` and the scheduler tables, with the same defaults), so that
+the port imports nothing of that package."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,3 +31,63 @@ class ModelConfig:
     # 'f32' is the <=1e-4 MAE parity mode (TF32 off, see device.py);
     # 'bf16' runs the nn.Module forward under bf16 autocast.
     compute_dtype: str = "bf16"
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer + scheduler settings (reference train_model.py:330-366, 636-637)."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4    # L2 coupled into the gradient (torch Adam), not AdamW
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    scheduler: str = "aggressive_plateau"  # | 'onecycle' | 'cosine_warmup'
+
+    # aggressive_plateau (train_model.py:331-340)
+    plateau_factor: float = 0.3
+    plateau_patience: int = 3
+    plateau_threshold: float = 5e-5
+    plateau_min_lr: float = 1e-8
+
+    # onecycle (train_model.py:342-354) — max_lr overrides the CLI lr,
+    # exactly as the reference does.
+    onecycle_max_lr: float = 1e-3
+    onecycle_pct_start: float = 0.3
+    onecycle_div_factor: float = 25.0
+    onecycle_final_div_factor: float = 1e4
+
+    # cosine_warmup (train_model.py:356-365). The reference's variant is
+    # broken (config type 'custom_warmup' is never constructed and stepping it
+    # raises NameError at the end of epoch 1 — train_model.py:376-387,451-452).
+    # This is the schedule its parameters describe: linear warmup for
+    # warmup_epochs to max_lr, then cosine decay to final_lr.
+    warmup_epochs: int = 5
+    warmup_max_lr: float = 1e-4
+    warmup_final_lr: float = 1e-7
+
+
+# Early-stop patience per scheduler (train_model.py:339, 353, 364).
+EARLY_STOP_PATIENCE = {
+    "aggressive_plateau": 8,
+    "onecycle": 20,
+    "cosine_warmup": 15,
+}
+
+# Scheduler registry "type" strings, used in artifact filenames
+# (train_model.py:331, 343, 357 — e.g. best_model_plateau.pth).
+SCHEDULER_TYPE_NAMES = {
+    "aggressive_plateau": "plateau",
+    "onecycle": "onecycle",
+    "cosine_warmup": "custom_warmup",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 256
+    num_epochs: int = 50
+    output_base: str = "."
+    resume: Optional[str] = None  # run dir to resume from (native checkpoints)
+    checkpoint_every: int = 1     # native-resume checkpoint cadence (epochs)
+    grad_accum: int = 1           # microbatches per optimizer step (extension)

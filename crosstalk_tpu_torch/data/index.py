@@ -1,6 +1,7 @@
 """Filename-pairing data index (the port's copy of crosstalk_tpu/data/index.py:
-the labeled pairing with the same regex and sample order, and the unlabeled
-pairing by filename stem of the predict CLI).
+the labeled pairing with the same regex and sample order, the unlabeled
+pairing by filename stem of the predict CLI, and the train CLI's seeded
+70/15/15 split).
 
 Reimplements the reference's dataset-discovery semantics (reference
 train_model.py:97-154, duplicated at test-cross-talk-model.py:125-182 — here
@@ -24,7 +25,9 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import List, Optional
+from typing import List, Optional, Sequence
+
+import torch
 
 FILE_PATTERN = re.compile(r"image_(\d+)_alpha_(\d+\.?\d*)_(mixed|source)\.tif")
 
@@ -188,3 +191,29 @@ def pair_unlabeled(mixed_dir: str, source_dir: str) -> UnlabeledIndex:
         unpaired_mixed=sorted(mixed[k] for k in mixed.keys() - source.keys()),
         unpaired_source=sorted(source[k] for k in source.keys() - mixed.keys()),
     )
+
+
+def split_samples(
+    samples: Sequence[Sample],
+    train_ratio: float,
+    val_ratio: float,
+    seed: int = 43,
+):
+    """Deterministic 3-way split -> (train, val, test) sample lists.
+
+    The reference shuffles indices with ``torch.manual_seed(43);
+    torch.randperm(N)`` (train_model.py:576-585); this draws the same
+    permutation from a CPU generator seeded alike, so the same files land in
+    each split as in the reference and in the JAX package.
+    """
+    n = len(samples)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    perm = torch.randperm(n, generator=gen).tolist()
+
+    train_size = int(train_ratio * n)
+    val_size = int(val_ratio * n)
+    train = [samples[i] for i in perm[:train_size]]
+    val = [samples[i] for i in perm[train_size : train_size + val_size]]
+    test = [samples[i] for i in perm[train_size + val_size :]]
+    return train, val, test

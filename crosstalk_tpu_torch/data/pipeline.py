@@ -7,7 +7,10 @@
      padded by index 0 and flagged by a zero ``mask``;
   3. ``device_batches`` copies each batch to the card from pinned memory
      with ``non_blocking=True``, enqueued up to two batches ahead (the JAX
-     package's ``device_prefetch``).
+     package's ``device_prefetch``);
+  4. or ``DeviceDataset``: the whole split uploaded to the card once, each
+     batch an ``index_select`` there, in the same order as
+     ``iterate_batches``.
 
 The tiles are decoded by the Python decoder (``data/tiff.py``); the JAX
 package's native C++ decoder is not ported yet.
@@ -226,3 +229,56 @@ def device_batches(batches: Iterator[Batch], device: torch.device) -> Iterator[B
             yield queue.popleft()
     while queue:
         yield queue.popleft()
+
+
+class DeviceDataset:
+    """Device-resident dataset: one upload, then on-device per-batch gathers
+    (port of the JAX package's ``DeviceDataset``).
+
+    Tiles and labels move to ``device`` once; each epoch uploads its index
+    order once and every batch is an ``index_select`` on the device, with no
+    per-step host-to-device copy and no host work in the loop. The order and
+    padding are ``iterate_batches``'s (same ``_epoch_index_batches``), so
+    host- and device-resident runs see the same batch sequence.
+    """
+
+    def __init__(self, store: TileStore, device: torch.device):
+        self.n = len(store)
+        self.device = torch.device(device)
+        self.tiles = torch.from_numpy(np.ascontiguousarray(store.tiles)).to(self.device)
+        self.labels = torch.from_numpy(store.labels).to(self.device)
+        self.ids = store.ids  # host-side (only eval consumers need ids)
+
+    def __len__(self) -> int:
+        return self.n
+
+    @staticmethod
+    def nbytes(store: TileStore) -> int:
+        """Device-memory footprint of residency for this store."""
+        return int(store.tiles.nbytes) + int(store.labels.nbytes)
+
+    def batches(
+        self,
+        batch_size: int,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 0,
+        epoch: int = 0,
+    ) -> Iterator[Batch]:
+        """Yield Batches whose inputs, labels and mask live on the device
+        (``ids`` stay on the host); the same order and padding contract as
+        ``iterate_batches``."""
+        cut = list(_epoch_index_batches(
+            self.n, batch_size, shuffle, drop_last, seed, epoch))
+        if not cut:
+            return
+        order = torch.from_numpy(np.stack([idx for idx, _ in cut]))
+        if self.device.type == "cuda":
+            order = order.pin_memory()
+        order = order.to(self.device, non_blocking=True)
+        slot = torch.arange(batch_size, device=self.device)
+        for k, (idx, real) in enumerate(cut):
+            mask = (slot < real).to(torch.float32)
+            yield Batch(self.tiles.index_select(0, order[k]),
+                        self.labels.index_select(0, order[k]),
+                        self.ids[idx], mask)

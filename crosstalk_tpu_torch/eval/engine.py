@@ -10,13 +10,14 @@ loss divides by the number of real samples.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from crosstalk_tpu_torch.data.pipeline import (
+    DeviceDataset,
     TileStore,
     device_batches,
     iterate_batches,
@@ -29,18 +30,19 @@ from crosstalk_tpu_torch.ops.metrics import classical_metrics
 _METRICS = artifacts.EVAL_FIELDNAMES[3:]
 
 
-def _eval_step(forward: Callable, inputs, labels, mask):
-    """Normalize -> forward -> per-sample squared error and metrics."""
+def _eval_step(forward: Callable, inputs, labels, mask, with_metrics: bool = True):
+    """Normalize -> forward -> per-sample squared error (and metrics)."""
     batch = normalize_batch_nhwc(inputs)
     preds = forward(batch).float()
     sq_err = torch.square(preds - labels)[:, 0] * mask
     out = {"preds": preds[:, 0], "sq_err": sq_err}
-    # zero the padding rows; real constant tiles keep their
-    # reference-semantics NaN
-    out.update({
-        k: torch.where(mask > 0, v, torch.zeros_like(v))
-        for k, v in classical_metrics(batch).items()
-    })
+    if with_metrics:
+        # zero the padding rows; real constant tiles keep their
+        # reference-semantics NaN
+        out.update({
+            k: torch.where(mask > 0, v, torch.zeros_like(v))
+            for k, v in classical_metrics(batch).items()
+        })
     return out
 
 
@@ -70,61 +72,87 @@ def _progress(iterable, desc: Optional[str], total: int):
 @torch.inference_mode()
 def evaluate(
     forward: Callable,
-    store: TileStore,
+    store: Union[TileStore, DeviceDataset],
     device: torch.device,
     batch_size: int = 64,
     desc: Optional[str] = None,
+    with_metrics: bool = True,
 ) -> Tuple[List[Dict], float]:
     """-> (per-sample rows in dataset order, mean MSE loss).
 
     ``forward(batch_nhwc) -> (B, 1)`` runs on ``device``: ``model_forward``
     or ``eval.fast_forward.make_fast_forward``. Rows use the 8-column eval
-    schema (test-cross-talk-model.py:39-41), with float32 values as the
-    reference's CSVs print them."""
+    schema (test-cross-talk-model.py:39-41) when ``with_metrics``, else the
+    2-column train-side schema (train_model.py:68), with float32 values as
+    the reference's CSVs print them. ``store`` may be a ``DeviceDataset``
+    (batches gathered on the device)."""
     rows: List[Dict] = []
     total_sq_err = 0.0
     total_n = 0
     batch_size = min(batch_size, max(1, len(store)))
-    batches = device_batches(iterate_batches(store, batch_size), device)
+    if isinstance(store, DeviceDataset):
+        batches = store.batches(batch_size)
+    else:
+        batches = device_batches(iterate_batches(store, batch_size), device)
     batches = _progress(batches, desc, num_batches(len(store), batch_size))
     for batch in batches:
-        out = _eval_step(forward, batch.inputs, batch.labels, batch.mask)
+        out = _eval_step(forward, batch.inputs, batch.labels, batch.mask,
+                         with_metrics)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         labels = batch.labels.cpu().numpy()[:, 0]
         real = int(batch.mask.sum().item())
         total_sq_err += float(out["sq_err"].sum())
         total_n += real
         for j in range(real):
-            rows.append({
-                "Image_ID": int(batch.ids[j]),
+            row = {
                 "Actual_Label": np.float32(labels[j]),
                 "Predicted_Label": np.float32(out["preds"][j]),
-                **{k: np.float32(out[k][j]) for k in _METRICS},
-            })
+            }
+            if with_metrics:
+                row = {"Image_ID": int(batch.ids[j]), **row,
+                       **{k: np.float32(out[k][j]) for k in _METRICS}}
+            rows.append(row)
 
     return rows, total_sq_err / max(total_n, 1)
 
 
 def evaluate_and_save(
     forward: Callable,
-    store: TileStore,
+    store: Union[TileStore, DeviceDataset],
     device: torch.device,
     dataset_name: str,
     output_dir: str,
     ts: str,
     batch_size: int = 64,
+    train_suffix: Optional[str] = None,
 ) -> float:
-    """Evaluate with metrics, write ``{split}_predictions_{ts}.csv`` and the
-    per-metric scatter plots (test-cross-talk-model.py:92-121)."""
+    """Evaluate, write the predictions CSV and its plots.
+
+    Eval side (``train_suffix`` None): ``{split}_predictions_{ts}.csv`` in
+    the 8-column schema and one scatter per metric
+    (test-cross-talk-model.py:92-121). Train side
+    (``train_suffix='{ts}_{bs}_{lr}'``): ``{split}_predictions_{suffix}.csv``
+    in the 2-column schema and ``{split}_predictions_plot_{suffix}.png``
+    (train_model.py:64-93)."""
+    with_metrics = train_suffix is None
     rows, loss = evaluate(
         forward, store, device, batch_size,
         desc=f"{dataset_name.capitalize()} Set Evaluation",
+        with_metrics=with_metrics,
     )
     print(f"Final {dataset_name.capitalize()} Loss: {loss:.6f}")
+    suffix = ts if with_metrics else train_suffix
+    fieldnames = artifacts.EVAL_FIELDNAMES if with_metrics else artifacts.TRAIN_FIELDNAMES
     artifacts.write_predictions_csv(
-        os.path.join(output_dir, f"{dataset_name}_predictions_{ts}.csv"),
-        rows, artifacts.EVAL_FIELDNAMES,
+        os.path.join(output_dir, f"{dataset_name}_predictions_{suffix}.csv"),
+        rows, fieldnames,
     )
     if rows:
-        artifacts.plot_metric_scatters(output_dir, rows, dataset_name, ts)
+        if with_metrics:
+            artifacts.plot_metric_scatters(output_dir, rows, dataset_name, ts)
+        else:
+            artifacts.plot_predictions_scatter(
+                output_dir, rows, dataset_name,
+                f"{dataset_name}_predictions_plot_{suffix}.png",
+            )
     return loss

@@ -11,9 +11,32 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default, see registry.init_model).
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+import torch
 from torch import nn
+
+
+class SeededDropout(nn.Dropout):
+    """``nn.Dropout`` whose train-mode mask is drawn from ``generator`` when
+    one is set, not from the device's default generator.
+
+    The train step re-seeds that generator per (seed, global step,
+    microbatch), so a dropout mask is a function of the step, like the JAX
+    package's ``fold_in(root_key, global_step)``, and a resumed run draws the
+    masks of the run it continues. Same ``state_dict`` (none) and ``repr``
+    as ``nn.Dropout``."""
+
+    generator: Optional[torch.Generator] = None
+
+    def _get_name(self) -> str:
+        return "Dropout"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0 or self.generator is None:
+            return super().forward(x)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        return x * keep * (1.0 / (1.0 - self.p))
 
 
 def conv_block(cin: int, cout: int, *, slope: float = 0.01, eps: float = 1e-5,
@@ -37,7 +60,7 @@ def dense_bn_block(fin: int, fout: int, dropout: float, *, slope: float = 0.01,
         nn.Linear(fin, fout, device=device),
         nn.BatchNorm1d(fout, eps=eps, momentum=momentum, device=device),
         nn.LeakyReLU(slope),
-        nn.Dropout(dropout),
+        SeededDropout(dropout),
     ]
 
 

@@ -139,16 +139,22 @@ def _raw_tiles(n, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["single", "double"])
-@pytest.mark.parametrize("fast", [False, True], ids=["f32", "fast"])
-def test_cuda_predictor_matches_cpu_predictor(cuda_device, variant, fast):
+@pytest.mark.parametrize("mode", ["f32", "bf16", "fast"])
+def test_cuda_predictor_matches_cpu_predictor(cuda_device, variant, mode):
     """The same weights through ``make_predictor`` on the card and on the
-    CPU: 1e-5 for the f32 module (TF32 off), 5e-4 for the bf16 fast path
-    (K1 and cuDNN against the plain version and the CPU convs)."""
+    CPU: 1e-5 for the f32 module (``compute_dtype='f32'``, TF32 off), 2e-3
+    (a few bf16 steps) for the default bf16 module, 5e-4 for the bf16 fast
+    path (K1 and cuDNN against the plain version and the CPU convs)."""
+    import dataclasses
+
     import numpy as np
 
     from crosstalk_tpu_torch.serve.predictor import make_predictor
 
     cfg, sd = _small_checkpoint(variant)
+    fast = mode == "fast"
+    if mode == "f32":
+        cfg = dataclasses.replace(cfg, compute_dtype="f32")
     before = fused_input_block.launches
     on_card = make_predictor(sd, cfg, (2, 4), image_size=32, fast=fast, device="cuda")
     assert fused_input_block.launches - before == (2 if fast else 0)  # warmup
@@ -156,7 +162,8 @@ def test_cuda_predictor_matches_cpu_predictor(cuda_device, variant, fast):
     raw = _raw_tiles(4)
     got, want = on_card(raw), on_cpu(raw)
     assert got.dtype == np.float32 and got.shape == (4,) and np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4 if fast else 1e-5)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol={"f32": 1e-5, "bf16": 2e-3, "fast": 5e-4}[mode])
 
 
 @pytest.mark.cuda
@@ -206,3 +213,69 @@ def test_cuda_server_with_f16_transport_returns_finite_alphas(cuda_device):
         assert client.stats()["transport_dtype"] == "float16"
     finally:
         server.shutdown()
+
+
+def _small_train_state(device, variant="single"):
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.models.registry import build_model, init_model
+    from crosstalk_tpu_torch.train.steps import init_train_state
+
+    kw = (dict(initial_filters=8, num_conv_blocks=3, dropout_single=0.0)
+          if variant == "single" else dict(initial_filters_per_branch=4, dropout_double=0.0))
+    model = build_model(ModelConfig(variant=variant, compute_dtype="f32", **kw), image_size=32)
+    init_model(model, torch.Generator().manual_seed(3))
+    return init_train_state(model.to(device), OptimConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["single", "double"])
+def test_cuda_train_step_matches_cpu(cuda_device, variant):
+    """Three f32 steps (TF32 off, flips on, dropout 0) from the same weights
+    on the card and on the CPU: the flips are equal bit for bit; losses
+    within rtol 2e-3 and eval predictions within 1e-4 (the bounds of the
+    port-vs-JAX trajectory test)."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.data.transforms import flip_bits
+    from crosstalk_tpu_torch.train.steps import make_train_step
+
+    index = torch.arange(1000)
+    assert torch.equal(flip_bits(5, 7, index.to(cuda_device)).cpu(), flip_bits(5, 7, index))
+    states = {d: _small_train_state(torch.device(d), variant) for d in ("cpu", "cuda")}
+    steps = {d: make_train_step(s, compute_dtype="f32", seed=5) for d, s in states.items()}
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        raw = torch.from_numpy(_raw_tiles(8, seed=10 + i))
+        y = torch.from_numpy(rng.uniform(0, 0.5, (8, 1)).astype(np.float32))
+        want = float(steps["cpu"](raw, y, 1e-3))
+        got = float(steps["cuda"](raw.to(cuda_device), y.to(cuda_device), 1e-3))
+        np.testing.assert_allclose(got, want, rtol=2e-3, err_msg=f"step {i}")
+    x = torch.from_numpy(_raw_tiles(4, seed=20)).permute(0, 3, 1, 2)
+    x = (x - x.amin((2, 3), keepdim=True)) / (x.amax((2, 3), keepdim=True) - x.amin((2, 3), keepdim=True))
+    with torch.no_grad():
+        want = states["cpu"].model.eval()(x)
+        got = states["cuda"].model.eval()(x.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_device_dataset_order_equals_iterate_batches(cuda_device, tmp_path):
+    import numpy as np
+
+    from crosstalk_tpu_torch.data.index import PairIndex
+    from crosstalk_tpu_torch.data.pipeline import DeviceDataset, TileStore, iterate_batches
+    from crosstalk_tpu_torch.data.synthetic import generate_dataset
+
+    store = TileStore(PairIndex(*generate_dataset(
+        str(tmp_path), num_pairs=13, size=16, seed=2, progress_every=0, block=4)).samples)
+    resident = DeviceDataset(store, cuda_device)
+    for kw in (dict(shuffle=True, drop_last=True, seed=3, epoch=2), {}):
+        host = list(iterate_batches(store, 4, **kw))
+        dev = list(resident.batches(4, **kw))
+        assert len(host) == len(dev) > 1
+        for h, d in zip(host, dev):
+            assert d.inputs.is_cuda and d.labels.is_cuda and d.mask.is_cuda
+            assert torch.equal(d.inputs.cpu(), torch.from_numpy(h.inputs))
+            assert torch.equal(d.labels.cpu(), torch.from_numpy(h.labels))
+            assert np.array_equal(d.ids, h.ids)
+            assert torch.equal(d.mask.cpu(), torch.from_numpy(h.mask))

@@ -54,6 +54,16 @@ def test_fresh_process_check_covers_the_serving_modules():
     } <= names
 
 
+def test_fresh_process_check_covers_the_training_modules():
+    names = set(_module_names())
+    assert {
+        "crosstalk_tpu_torch.train", "crosstalk_tpu_torch.train.loop",
+        "crosstalk_tpu_torch.train.steps", "crosstalk_tpu_torch.train.schedules",
+        "crosstalk_tpu_torch.io.checkpoint", "crosstalk_tpu_torch.cli.train",
+        "crosstalk_tpu_torch.data.synthetic",
+    } <= names
+
+
 def test_import_loads_no_jax_in_a_fresh_process():
     mods = _module_names() + ["chip_smoke"]
     code = (
@@ -111,6 +121,15 @@ def test_eval_cli_without_device_raises_on_a_cudaless_host(monkeypatch, tmp_path
         main(["-m", str(tmp_path), "-s", str(tmp_path), "-p", "none.pth",
               "--output_base", str(tmp_path)])
     assert not list(tmp_path.glob("eval_run_*"))
+
+
+def test_train_cli_without_device_raises_on_a_cudaless_host(monkeypatch, tmp_path):
+    from crosstalk_tpu_torch.cli.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["-m", str(tmp_path), "-s", str(tmp_path), "--output_base", str(tmp_path)])
+    assert not list(tmp_path.glob("training_run_*"))
 
 
 @pytest.mark.parametrize("flags", [
