@@ -47,12 +47,32 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      default ``-b 256`` on device-resident tiles (ms, tiles/s, peak memory,
      share of the bf16 peak, the split into data, forward, backward and
      optimizer, steps/s with and without a per-step ``.item()``, one
-     ``--grad_accum 4`` step and its peak memory).
+     ``--grad_accum 4`` step and its peak memory);
+  9. the int8 tier and the AOT artifact: ``calibrate_int8`` over 256 tiles
+     (wall, K1 launched); one int8 conv block (single-branch block 1) on the
+     card against the CPU, int32 accumulators and bf16 output bitwise; the
+     full single-branch int8 forward card vs CPU, and everything after
+     block 0 card vs CPU from one block-0 output (bf16 and int8 head, random
+     and trained weights), each beside the spread of its predictions; int8
+     vs f32 MAE on the random and the phase-8 trained single-branch weights,
+     beside the spread of the f32 predictions; int8 forward times per batch
+     of 64 and 256 for both models, split into K1, quantize, int8 products
+     and epilogue, with peak memory and the ``--fast`` time beside them;
+     ``predict --int8`` over the whole
+     images; ``serve --quantize int8`` in process (K1 counted) and as a
+     subprocess driven by ``predict --url`` and ``remote_eval``, served
+     against the in-process int8 predictor, and a ``/reload`` of the
+     trained checkpoint that must recalibrate; the export tool on the card
+     (both models' bf16 artifacts, the single-branch int8 one), each loaded
+     in a fresh process where ``import crosstalk_tpu_torch`` fails and held
+     against the live tier with and without K1, its time per batch of 64;
+     then ``predict --artifact`` and ``serve --artifact``.
 
 Each path that runs K1 starts with its launch count at 0 and is read just
 after (``launches_by_path`` in the kernels JSON). Every number is printed
-beside the card's name and power limit. The last three lines are the
-kernels JSON, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
+beside the card's name and power limit. Before the last three lines come
+the phase-8 and phase-9 JSON lines; the last three are the kernels JSON,
+the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 Imports nothing of the JAX package.
 """
 
@@ -1211,7 +1231,487 @@ def phase_train(root: str, mixed_dir: str, source_dir: str, by_path: dict) -> di
     wall = time.perf_counter() - t_phase
     print(f"phase 8 (training) wall: {wall:.1f} s ({CARD})", flush=True)
     return {"cli_wall_s": walls, "f32_card_vs_cpu": card_vs_cpu, "step": timings,
-            "phase_wall_s": wall}
+            "phase_wall_s": wall, "finals": finals}
+
+
+INT8_ENVELOPE = 2e-2   # int8 tier vs f32 MAE (tests/test_int8_forward.py:160-180)
+INT8_SPREAD_SHARE = 0.15  # ... and MAE below this share of the f32 spread (:151-154)
+INT8_CARD_CPU_TOL = 1e-3  # the int8 forward, card vs CPU, one set of scales
+INT8_HEAD_TOL = 1e-6   # the int8 head, card vs CPU from one feature tensor
+INT8_BF16_HEAD_TOL = 5e-4  # its bf16 head, as the --fast path's card-vs-CPU bound
+INT8_COMPARE_TILES = 16
+ARTIFACT_TOL = 1e-6    # an artifact vs the live forward of its tier (DEPLOY.md)
+ARTIFACT_K1_TOL = 2e-3  # an artifact vs the same tier with K1 on block 0
+INT8_BATCHES = (64, 256)
+
+
+def load_raw(mixed_dir: str, source_dir: str, n: int) -> np.ndarray:
+    """The raw f32 tiles of the first ``n`` pairs, in the predict CLI's order."""
+    from crosstalk_tpu_torch.data.index import pair_unlabeled
+    from crosstalk_tpu_torch.data.pipeline import load_tiles
+
+    return load_tiles(pair_unlabeled(mixed_dir, source_dir).samples[:n], jobs=8)
+
+
+def int8_block_card_vs_cpu(sd: dict, x_nhwc: torch.Tensor) -> dict:
+    """One int8 conv block (single-branch block 1: 128 -> 256 channels at
+    128x128) from one bf16 input with the same folded weights and clip:
+    int32 accumulators and the bf16 output on the card against the CPU."""
+    from crosstalk_tpu_torch.eval.fast_forward import _block_affine
+    from crosstalk_tpu_torch.eval.int8_forward import (
+        _conv3x3_int8,
+        _mse_clip,
+        _quant_act,
+        conv_block_int8,
+        prepare_conv_int8,
+    )
+
+    sx = float(_mse_clip(x_nhwc))
+    kernel, scale, bias = _block_affine(sd, "conv_layers", 1, 1e-5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = x_nhwc.to(dev)
+        blk = prepare_conv_int8(kernel.to(dev), scale.to(dev), bias.to(dev), sx)
+        out[dev] = (_conv3x3_int8(_quant_act(x, sx), blk.weight).cpu(),
+                    conv_block_int8(x, blk, 0.01).cpu())
+    acc_equal = torch.equal(out["cuda"][0], out["cpu"][0])
+    out_equal = torch.equal(out["cuda"][1].view(torch.int16), out["cpu"][1].view(torch.int16))
+    check(acc_equal and out_equal,
+          f"int8 block 1 ({tuple(x_nhwc.shape)} bf16 -> {tuple(out['cpu'][1].shape)}), card vs "
+          f"CPU from one input, weights and clip {sx:.6g}: int32 accumulators bitwise "
+          f"{'equal' if acc_equal else 'DIFFERENT'}, bf16 output bitwise "
+          f"{'equal' if out_equal else 'DIFFERENT'} ({CARD})")
+    return {"block1_shape": list(x_nhwc.shape), "accumulators_equal": acc_equal,
+            "output_equal": out_equal}
+
+
+def int8_forward_card_vs_cpu(cfg, weights: dict, calib: torch.Tensor) -> dict:
+    """The full-width single-branch int8 forward on the card against the
+    CPU, for each of ``weights`` (name -> CPU state_dict) and each head,
+    with one set of scales calibrated on the card over ``calib``, on its
+    first INT8_COMPARE_TILES tiles, beside the spread (max - min) of the
+    CPU's predictions. The whole forward differs by K1's rounding against
+    its plain version, which moves a few int8 activations by a step. So
+    each stage is also held on its own, from the CPU's input to it: the
+    trunk (int8 blocks, concat, flatten) bitwise, the int8 head within
+    INT8_HEAD_TOL (the final product sums f32 in another order), the bf16
+    head within INT8_BF16_HEAD_TOL (its bf16 casts between the layers round
+    some of those f32 differences apart)."""
+    from crosstalk_tpu_torch.eval.fast_forward import make_first_block
+    from crosstalk_tpu_torch.eval.int8_forward import (
+        calibrate_int8,
+        make_int8_forward,
+        make_int8_head,
+        make_int8_trunk,
+    )
+
+    x = calib[:INT8_COMPARE_TILES]
+    x_cpu = x.cpu()
+    out = {}
+    for name, sd_cpu in weights.items():
+        sd = {k: v.cuda() for k, v in sd_cpu.items()}
+        scales = calibrate_int8(cfg, sd, calib)
+        with torch.inference_mode():
+            block0 = make_first_block(cfg, sd_cpu)(x_cpu)
+            feats = make_int8_trunk(cfg, sd_cpu, scales)(block0)
+            card_feats = make_int8_trunk(cfg, sd, scales)([h.cuda() for h in block0]).cpu()
+        trunk_equal = torch.equal(card_feats.view(torch.int16), feats.view(torch.int16))
+        check(trunk_equal,
+              f"int8 trunk ({name} single-branch weights, blocks 1-5, concat, flatten -> "
+              f"{tuple(feats.shape)} bf16), card vs CPU from one block-0 output: bitwise "
+              f"{'equal' if trunk_equal else 'DIFFERENT'} ({CARD})")
+        for head, int8_dense in (("bf16_head", False), ("int8_head", True)):
+            if int8_dense:
+                scales = calibrate_int8(cfg, sd, calib, int8_dense=True)
+            with torch.inference_mode():
+                cpu = make_int8_head(cfg, sd_cpu, scales)(feats)
+                card_head = make_int8_head(cfg, sd, scales)(feats.cuda()).cpu()
+                full = make_int8_forward(cfg, sd, scales)(x).cpu()
+            spread = float(cpu.max() - cpu.min())
+            err_full = float((full - cpu).abs().max())
+            err_head = float((card_head - cpu).abs().max())
+            head_tol = INT8_HEAD_TOL if int8_dense else INT8_BF16_HEAD_TOL
+            check(bool(torch.isfinite(full).all()) and err_full <= INT8_CARD_CPU_TOL,
+                  f"int8 forward, {name} single-branch weights, {head}, {len(x)} tiles, card vs "
+                  f"CPU: max |diff| {err_full:.3e} (tol {INT8_CARD_CPU_TOL}); CPU predictions "
+                  f"spread {spread:.3e} ({CARD})")
+            check(err_head <= head_tol,
+                  f"int8 forward's {head}, {name} weights, card vs CPU from one feature tensor: "
+                  f"max |diff| {err_head:.3e} (tol {head_tol}); spread {spread:.3e} ({CARD})")
+            out[f"{name}_{head}"] = {"full": err_full, "head": err_head, "spread": spread}
+        out[f"{name}_trunk_equal"] = trunk_equal
+        del sd
+    return out
+
+
+def int8_split(cfg, sd: dict, scales: dict, x: torch.Tensor) -> dict:
+    """Device time of one int8 forward (CUDA events) split into block 0
+    (K1), quantize, int8 products and epilogue of blocks 1+, and the rest
+    (concat and head); peak memory; the --fast forward beside it."""
+    from crosstalk_tpu_torch.eval.fast_forward import (
+        _block_affine,
+        make_fast_forward,
+        make_first_block,
+    )
+    from crosstalk_tpu_torch.eval.int8_forward import (
+        _conv3x3_int8,
+        _int8_epilogue,
+        _quantize,
+        make_int8_forward,
+        prepare_conv_int8,
+    )
+    from crosstalk_tpu_torch.io.torch_convert import count_blocks, structure
+
+    prefixes = [p for p, _ in structure(cfg.variant)[0]]
+    names = ["bleed_", "source_"] if cfg.variant == "double" else ["conv_"]
+    first = make_first_block(cfg, sd)
+    trunks = [[prepare_conv_int8(*_block_affine(sd, p, i, cfg.bn_eps), scales[f"{n}{i}"])
+               for i in range(1, count_blocks(sd, p))] for p, n in zip(prefixes, names)]
+    forward = make_int8_forward(cfg, sd, scales)
+    fast = make_fast_forward(cfg, sd)
+    parts = dict.fromkeys(("k1", "quantize", "products", "epilogue"), 0.0)
+    with torch.inference_mode():
+        parts["k1"] = time_ms(lambda: first(x), iters=5)
+        for h, blocks in zip(first(x), trunks):
+            h = h.permute(0, 2, 3, 1)
+            for blk in blocks:
+                parts["quantize"] += time_ms(lambda: _quantize(h, blk.qs), iters=5)
+                xq = _quantize(h, blk.qs)
+                parts["products"] += time_ms(lambda: _conv3x3_int8(xq, blk.weight), iters=5)
+                acc = _conv3x3_int8(xq, blk.weight)
+                parts["epilogue"] += time_ms(
+                    lambda: _int8_epilogue(acc, blk.eff_scale, blk.bias, cfg.leaky_slope), iters=5)
+                h = _int8_epilogue(acc, blk.eff_scale, blk.bias, cfg.leaky_slope)
+                del xq, acc
+        total = time_ms(lambda: forward(x), iters=5)
+        fast_ms = time_ms(lambda: fast(x), iters=5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        forward(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    parts["rest"] = total - sum(parts.values())
+    b = x.shape[0]
+    print(f"int8 forward {cfg.variant} batch {b} ({CARD}): {total:.3f} ms = "
+          f"{b / total * 1e3:.0f} tiles/s (--fast {fast_ms:.3f} ms); split ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; peak max_memory_allocated {peak / 2 ** 30:.2f} GiB", flush=True)
+    return {"ms": total, "fast_ms": fast_ms, "split_ms": parts, "peak_gib": peak / 2 ** 30}
+
+
+def phase_int8(root: str, ckpts: dict, trained: str, mixed_dir: str, source_dir: str,
+               by_path: dict) -> dict:
+    """Phase 9a: the int8 tier on the card (calibration, block and forward
+    against the CPU, accuracy, times) and through predict --int8 and the
+    serve CLI with --quantize int8."""
+    import queue
+    import signal
+    import threading
+    import urllib.request
+
+    from crosstalk_tpu_torch.cli.predict import main as predict_main
+    from crosstalk_tpu_torch.cli.remote_eval import main as remote_eval_main
+    from crosstalk_tpu_torch.cli.serve import build_parser, build_server
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.data.index import pair_unlabeled
+    from crosstalk_tpu_torch.eval.fast_forward import make_first_block
+    from crosstalk_tpu_torch.eval.int8_forward import calibrate_int8, load_calibration_tiles
+    from crosstalk_tpu_torch.io.torch_convert import load_pth
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+    from crosstalk_tpu_torch.serve.client import CrosstalkClient
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+
+    out = {}
+    cfg = ModelConfig()
+    sd_cpu = load_pth(ckpts["single"])
+    sd = {k: v.cuda() for k, v in sd_cpu.items()}
+    t0 = time.perf_counter()
+    calib = load_calibration_tiles(mixed_dir, source_dir, SIZE, max_tiles=256, jobs=8)
+    load_s = time.perf_counter() - t0
+    calib_t = torch.from_numpy(calib).cuda()
+    fused_input_block.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = calibrate_int8(cfg, sd, calib_t)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    launches = by_path["calibrate_single"] = fused_input_block.launches
+    check(launches == 1, f"calibrate_int8 over 256 tiles launched K1 {launches} time(s) "
+                         "(expected 1: block 0 of the calibration batch)")
+    print(f"int8 calibration, single-branch, 256 tiles ({CARD}): calibrate_int8 "
+          f"{calib_s:.3f} s wall, tile loading {load_s:.3f} s; scales "
+          + ", ".join(f"{k} {v:.5g}" for k, v in scales.items()), flush=True)
+    out["calibration_s"] = calib_s
+    out["calibration_load_s"] = load_s
+
+    # one int8 block, and the whole forward, card against the CPU
+    with torch.inference_mode():
+        x1 = make_first_block(cfg, sd)(calib_t[:16])[0].permute(0, 2, 3, 1)
+    out["block_card_vs_cpu"] = int8_block_card_vs_cpu(sd_cpu, x1)
+    del x1
+    out["forward_card_vs_cpu"] = int8_forward_card_vs_cpu(
+        cfg, {"random": sd_cpu, "trained": load_pth(trained)}, calib_t)
+
+    # accuracy against the f32 forward, random and trained weights
+    raw = torch.from_numpy(load_raw(mixed_dir, source_dir, N_PAIRS))
+    out["mae_vs_f32"] = {}
+    for name, ckpt in (("random", ckpts["single"]), ("trained", trained)):
+        w = load_pth(ckpt)
+        sc = calibrate_int8(cfg, {k: v.cuda() for k, v in w.items()}, calib_t)
+        int8 = make_predictor(w, cfg, BATCH, image_size=SIZE, int8_scales=sc, warmup=False)
+        f32 = make_predictor(w, ModelConfig(compute_dtype="f32"), BATCH, image_size=SIZE,
+                             fast=False, warmup=False)
+        fast = make_predictor(w, cfg, BATCH, image_size=SIZE, warmup=False)
+        p8, p32, pf = (predict_in_buckets(p, [raw.numpy()], BATCH) for p in (int8, f32, fast))
+        mae, mae_fast = float(np.abs(p8 - p32).mean()), float(np.abs(pf - p32).mean())
+        spread = float(np.ptp(p32))
+        tol = min(INT8_ENVELOPE, INT8_SPREAD_SHARE * max(spread, 1e-3))
+        out["mae_vs_f32"][name] = {"int8": mae, "fast": mae_fast, "f32_spread": spread}
+        check(np.isfinite(p8).all() and mae <= tol,
+              f"int8 tier vs f32 on {name} single-branch weights, {N_PAIRS} tiles: MAE "
+              f"{mae:.3e} (tol {tol:.3e} = min({INT8_ENVELOPE}, {INT8_SPREAD_SHARE} x max(f32 "
+              f"spread {spread:.3e}, 1e-3)); --fast vs f32 {mae_fast:.3e}) ({CARD})")
+        del int8, f32, fast
+        torch.cuda.empty_cache()
+
+    # times: single-branch at 64 and 256, the two-branch library forward
+    out["times"] = {}
+    for variant in ("single", "double"):
+        w = {k: v.cuda() for k, v in load_pth(ckpts[variant]).items()}
+        vcfg = ModelConfig(variant=variant)
+        sc = calibrate_int8(vcfg, w, calib_t[:64])
+        for b in INT8_BATCHES:
+            out["times"][f"{variant}_{b}"] = int8_split(vcfg, w, sc, calib_t[:b])
+        del w
+        torch.cuda.empty_cache()
+
+    # predict --int8 over the whole 1024x1024 images
+    whole_m, whole_s = os.path.join(root, "whole", "Mixed"), os.path.join(root, "whole", "Source")
+    n_tiles = WHOLE_PAIRS * (WHOLE_SIZE // SIZE) ** 2
+    fused_input_block.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = predict_main(["-m", whole_m, "-s", whole_s, "-p", ckpts["single"], "--int8",
+                       "-b", str(BATCH), "--output_base", os.path.join(root, "whole_int8")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = by_path["predict_int8_single"] = fused_input_block.launches
+    expect = 1 + math.ceil(n_tiles / BATCH)
+    check(rc == 0 and launches == expect,
+          f"predict --int8 exit code {rc}, K1 launched {launches} times (expected {expect} = "
+          f"1 calibration + ceil({n_tiles}/{BATCH}))")
+    rows = read_csv(os.path.join(root, "whole_int8", "predict_run_*", "predictions_*.csv"))
+    alphas = np.array([float(r["Predicted_Alpha"]) for r in rows])
+    check(len(rows) == WHOLE_PAIRS and np.isfinite(alphas).all(),
+          f"predict --int8: {len(rows)} finite rows ({WHOLE_PAIRS} images of {WHOLE_SIZE}x"
+          f"{WHOLE_SIZE}, CLI wall {wall:.2f} s = {n_tiles / wall:.1f} tiles/s, {CARD})")
+    out["predict_int8_wall_s"] = wall
+
+    # the serve CLI with --quantize int8: in process (K1 counted) ...
+    serve_flags = ["-p", ckpts["single"], "--quantize", "int8", "--calibration_mixed_dir",
+                   mixed_dir, "--calibration_source_dir", source_dir, "--batch_size",
+                   str(BATCH), "--port", "0", "--max_delay_ms", "5"]
+
+    def in_process(sc):
+        """The in-process int8 predictor with the scales ``sc``, over the
+        phase-4 tiles."""
+        direct = make_predictor(sd_cpu, cfg, BATCH, image_size=SIZE, int8_scales=sc,
+                                warmup=False)
+        return predict_in_buckets(direct, [raw.numpy()], BATCH)
+
+    def same_scales(a, b):
+        return a.keys() == b.keys() and all(math.isclose(a[k], b[k], rel_tol=1e-5) for k in a)
+
+    fused_input_block.launches = 0
+    server, info = build_server(build_parser().parse_args(serve_flags))
+    try:
+        server.start_background()
+        client = CrosstalkClient("http://%s:%d" % server.address, timeout=300)
+        served = np.concatenate([client.predict(raw.numpy()[i:i + BATCH], dtype="float32")
+                                 for i in range(0, N_PAIRS, BATCH)])
+        batches = client.stats()["batches"]
+        launches = by_path["serve_int8_single"] = fused_input_block.launches
+    finally:
+        server.shutdown()
+    err = float(np.abs(served - in_process(info["int8_scales"])).max())
+    check(same_scales(info["int8_scales"], scales) and launches == 2 + batches
+          and err <= 1e-6,
+          f"serve --quantize int8 in process: scales {'equal' if info['int8_scales'] == scales else 'within rtol 1e-5 of'} "
+          f"the in-process calibration; K1 launched {launches} times = 1 calibration + 1 "
+          f"warmup + {batches} batches; served vs the in-process int8 predictor max |diff| "
+          f"{err:.2e} (tol 1e-6, f32 wire)")
+
+    # ... and as a subprocess, driven by predict --url and remote_eval, with
+    # a /reload of the trained checkpoint that must recalibrate
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crosstalk_tpu_torch.cli.serve", *serve_flags, "--allow_reload"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=here)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    try:
+        url, seen, deadline = None, [], time.monotonic() + 180
+        while url is None and time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                break
+            seen.append(line)
+            if line.startswith("Serving on "):
+                url = line.split()[2]
+        check(url is not None, "serve --quantize int8 printed 'Serving on' within 180 s"
+              + ("" if url else ":\n" + "".join(seen[-20:])))
+        client = CrosstalkClient(url, timeout=300)
+        before = client.health()
+        served = np.concatenate([client.predict(raw.numpy()[i:i + BATCH], dtype="float32")
+                                 for i in range(0, N_PAIRS, BATCH)])
+        t0 = time.perf_counter()
+        rc = predict_main(["-m", mixed_dir, "-s", source_dir, "--url", url, "--dtype", "float32",
+                           "--output_base", os.path.join(root, "url_int8")])
+        url_s = time.perf_counter() - t0
+        check(rc == 0, f"predict --url against serve --quantize int8: exit code {rc}")
+        rc = remote_eval_main(["-m", mixed_dir, "-s", source_dir, "--url", url, "--dtype",
+                               "float32", "-o", os.path.join(root, "remote_int8")])
+        check(rc == 0, f"remote_eval against serve --quantize int8: exit code {rc}")
+        req = urllib.request.Request(url + "/reload", method="POST",
+                                     data=json.dumps({"model_path": trained}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            reloaded = json.load(r)
+        after = client.health()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            code = None
+        check(code == 0, f"serve --quantize int8 exits {code} within 60 s of SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    want = in_process(before["int8_scales"])
+    err = float(np.abs(served - want).max())
+    by_key = dict(zip((s.image_id for s in pair_unlabeled(mixed_dir, source_dir).samples), want))
+    rows = read_csv(os.path.join(root, "url_int8", "predict_run_*", "predictions_*.csv"))
+    err_csv = max(abs(float(r["Predicted_Alpha"]) - by_key[r["Image_Key"]]) for r in rows)
+    evals = read_csv(os.path.join(root, "remote_int8", "eval_run_*", "test_predictions_*.csv"))
+    check(before.get("path") == "int8-serving" and same_scales(before["int8_scales"], scales)
+          and len(rows) == len(evals) == N_PAIRS and err <= 1e-6 and err_csv <= 1.5e-6,
+          f"serve --quantize int8 subprocess: /healthz path {before.get('path')}, scales within "
+          f"rtol 1e-5 of the in-process calibration; served (f32 wire) vs the in-process int8 "
+          f"predictor with its scales: max |diff| {err:.2e} (tol 1e-6); predict --url CSV "
+          f"{err_csv:.2e} (tol 1e-6 + its 6-decimal rounding), {N_PAIRS / url_s:.1f} tiles/s; "
+          f"remote_eval {len(evals)} rows ({CARD})")
+    trained_scales = calibrate_int8(cfg, {k: v.cuda() for k, v in load_pth(trained).items()},
+                                    calib_t)
+    check(reloaded.get("status") == "reloaded" and after.get("checkpoint") == trained
+          and same_scales(after["int8_scales"], trained_scales)
+          and after["int8_scales"] != before["int8_scales"],
+          f"/reload of the trained checkpoint recalibrated: scales {before['int8_scales']} "
+          f"-> {after['int8_scales']}")
+    return out
+
+
+def phase_export(root: str, ckpts: dict, mixed_dir: str, source_dir: str) -> dict:
+    """Phase 9b: the export tool on the card (both models' bf16 artifacts,
+    the single-branch int8 one), each loaded in a fresh process in which
+    ``import crosstalk_tpu_torch`` fails, held against the live forwards,
+    then served and predicted through --artifact."""
+    from crosstalk_tpu_torch.cli.predict import main as predict_main
+    from crosstalk_tpu_torch.cli.serve import build_parser, build_server
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.io.export import load_exported, make_forward, read_exported
+    from crosstalk_tpu_torch.io.torch_convert import load_pth
+    from crosstalk_tpu_torch.serve.client import CrosstalkClient
+    from crosstalk_tpu_torch.tools.export_model import main as export_main
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    arts = {
+        "single_fast": (["-p", ckpts["single"]], "single"),
+        "double_fast": (["-p", ckpts["double"], "-o", "double"], "double"),
+        "single_int8": (["-p", ckpts["single"], "--quantize", "int8", "--calibration_mixed_dir",
+                         mixed_dir, "--calibration_source_dir", source_dir], "single"),
+    }
+    out, metas = {}, {}
+    for name, (flags, _) in arts.items():
+        path = os.path.join(root, f"{name}.ctkt")
+        t0 = time.perf_counter()
+        rc = export_main(flags + ["--out", path])
+        check(rc == 0, f"export_model {name}: exit code {rc} ({time.perf_counter() - t0:.2f} s)")
+        out[name] = {"export_s": time.perf_counter() - t0, "mb": os.path.getsize(path) / 1e6}
+        metas[name] = read_exported(path)[2]
+
+    raw = load_raw(mixed_dir, source_dir, BATCH)
+    np.save(os.path.join(root, "tiles.npy"), raw)
+    loader = os.path.join(here, "crosstalk_tpu_torch", "io", "export.py")
+    code = (
+        "import sys, importlib.util\n"
+        "import numpy as np\n"
+        "sys.modules['crosstalk_tpu_torch'] = None\n"
+        "try:\n"
+        "    import crosstalk_tpu_torch\n"
+        "    sys.exit('crosstalk_tpu_torch imported')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        f"spec = importlib.util.spec_from_file_location('artifact_loader', {loader!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        f"tiles = np.load({os.path.join(root, 'tiles.npy')!r})\n"
+        f"for name in {list(arts)!r}:\n"
+        f"    fn, meta = mod.load_exported({root!r} + '/' + name + '.ctkt')\n"
+        f"    np.save({root!r} + '/' + name + '.out.npy', fn(tiles))\n"
+        "print('loaded without the package:', sorted(m for m in sys.modules "
+        "if m.startswith('crosstalk')))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "the artifacts load and run in a fresh process where "
+          f"`import crosstalk_tpu_torch` fails:\n{proc.stdout[-1000:]}{proc.stderr[-3000:]}")
+    x = torch.from_numpy(raw).cuda()
+    for name, (_, variant) in arts.items():
+        got = np.load(os.path.join(root, f"{name}.out.npy"))
+        scales = metas[name].get("int8_scales")
+        sd = load_pth(ckpts[variant])
+        cfg = ModelConfig(variant=variant)
+        with torch.inference_mode():
+            live = make_forward(cfg, sd, device="cuda", use_kernel=False,
+                                int8_scales=scales)(x).cpu().numpy()
+            with_k1 = make_forward(cfg, sd, device="cuda", int8_scales=scales)(x).cpu().numpy()
+        err, err_k1 = float(np.abs(got - live).max()), float(np.abs(got - with_k1).max())
+        fn, _ = load_exported(os.path.join(root, f"{name}.ctkt"))
+        ms = time_ms(lambda: fn.forward(x), iters=10)
+        out[name].update({"vs_live": err, "vs_k1": err_k1, "ms_per_64": ms})
+        check(got.shape == (BATCH,) and np.isfinite(got).all() and err <= ARTIFACT_TOL
+              and err_k1 <= ARTIFACT_K1_TOL,
+              f"artifact {name} ({out[name]['mb']:.1f} MB, path {metas[name]['path']}, block 0: "
+              f"{metas[name]['block0']}): vs the live forward without K1 max |diff| {err:.2e} "
+              f"(tol {ARTIFACT_TOL}), vs the same tier with K1 {err_k1:.2e} (tol "
+              f"{ARTIFACT_K1_TOL}); {ms:.3f} ms per batch of {BATCH} ({CARD})")
+        del fn
+
+    # predict --artifact and serve --artifact once each
+    rc = predict_main(["-m", mixed_dir, "-s", source_dir, "--artifact",
+                       os.path.join(root, "single_int8.ctkt"), "-b", str(BATCH),
+                       "--output_base", os.path.join(root, "predict_artifact")])
+    rows = read_csv(os.path.join(root, "predict_artifact", "predict_run_*", "predictions_*.csv"))
+    check(rc == 0 and len(rows) == N_PAIRS
+          and np.isfinite([float(r["Predicted_Alpha"]) for r in rows]).all(),
+          f"predict --artifact (int8): exit code {rc}, {len(rows)} finite rows")
+    server, info = build_server(build_parser().parse_args(
+        ["--artifact", os.path.join(root, "single_fast.ctkt"), "--batch_size", str(BATCH),
+         "--port", "0"]))
+    try:
+        server.start_background()
+        got = CrosstalkClient("http://%s:%d" % server.address, timeout=300).predict(
+            raw, dtype="float32")
+    finally:
+        server.shutdown()
+    want = np.load(os.path.join(root, "single_fast.out.npy"))
+    err = float(np.abs(got - want).max())
+    check(info["path"] == "fast" and err <= ARTIFACT_TOL,
+          f"serve --artifact (bf16): served vs the artifact loaded without the package: "
+          f"max |diff| {err:.2e} (tol {ARTIFACT_TOL})")
+    return out
 
 
 def main() -> int:
@@ -1234,13 +1734,22 @@ def main() -> int:
         phase_serve_cli(root, ckpts["single"], mixed_dir, source_dir)
         phase_predict_whole_image(root, ckpts, by_path)
         training = phase_train(root, mixed_dir, source_dir, by_path)
+        t9 = time.perf_counter()
+        int8 = phase_int8(root, ckpts, training.pop("finals")["single"], mixed_dir,
+                          source_dir, by_path)
+        int8["export"] = phase_export(root, ckpts, mixed_dir, source_dir)
+        int8["phase_wall_s"] = time.perf_counter() - t9
+        print(f"phase 9 (int8 tier and export) wall: {int8['phase_wall_s']:.1f} s ({CARD})",
+              flush=True)
     paths = ["eval_single", "eval_double", "serve_single_f32", "serve_single_f16",
              "serve_double", "predict_single", "predict_double",
              "eval_trained_single", "eval_trained_double",
-             "eval_trained_single_negated_bn", "eval_trained_double_negated_bn"]
+             "eval_trained_single_negated_bn", "eval_trained_double_negated_bn",
+             "calibrate_single", "predict_int8_single", "serve_int8_single"]
     check(sorted(by_path) == sorted(paths) and all(by_path[p] > 0 for p in paths),
           f"K1 launched on every path: {by_path}")
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"int8_export": int8}), flush=True)
     print(f"chip_smoke.py wall: {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
 
     kernel = {

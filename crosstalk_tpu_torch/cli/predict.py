@@ -10,6 +10,8 @@ per-pair predicted alphas:
 
     # local checkpoint, on the CUDA card (--device cpu for the CPU)
     python -m crosstalk_tpu_torch.cli.predict -m MIXED_DIR -s SOURCE_DIR -p model.pth
+    # or an AOT artifact (tools/export_model): no model code, no checkpoint
+    python -m crosstalk_tpu_torch.cli.predict -m MIXED_DIR -s SOURCE_DIR --artifact m.ctkt
     # or against a running server (cli/serve.py): no weights or card here
     python -m crosstalk_tpu_torch.cli.predict -m MIXED_DIR -s SOURCE_DIR \\
         --url http://gpu-host:8000
@@ -18,7 +20,9 @@ Output: ``predict_run_{ts}/`` with ``params.txt`` and
 ``predictions_{ts}.csv`` (``Image_Key,Mixed_File,Source_File,
 Predicted_Alpha,Num_Tiles,Alpha_Std``). Local inference is float32
 checkpoint parity (TF32 off) by default; ``--fast`` runs the folded-BN bf16
-forward with block 0 in the fused CUDA input-block kernel. Remote mode ships
+forward with block 0 in the fused CUDA input-block kernel; ``--int8`` the
+opt-in int8 tier (self-calibrated on the first <=256 input tiles, block 0
+in the same kernel); ``--artifact`` an exported program. Remote mode ships
 tiles over the serving wire (float16 payloads by default). For LABELED
 directories scored against a server, see cli/remote_eval.py.
 
@@ -51,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Base URL of a running crosstalk server "
                              "(remote inference; exactly one of -p/--url)")
     parser.add_argument("--artifact", type=str, default=None,
-                        help="Not available in this package yet (the "
-                             "export artifact is a later slice)")
+                        help="AOT serving artifact (from "
+                             "crosstalk_tpu_torch.tools.export_model): local "
+                             "inference with no model code or checkpoint, "
+                             "on the device type it was exported for")
     parser.add_argument("--request_tiles", type=int, default=64,
                         help="Remote mode: tiles per HTTP request (must be "
                              "within the server's --max_tiles)")
@@ -82,8 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Use the bf16 serving path (folded-BN forward "
                              "with the fused CUDA input block)")
     parser.add_argument("--int8", action="store_true",
-                        help="Not available in this package yet (the int8 "
-                             "tier is a later slice)")
+                        help="Use the opt-in int8 tier (prediction error "
+                             "OUTSIDE the 1e-4 parity budget). Activation "
+                             "ranges self-calibrate on the first <=256 input "
+                             "tiles")
     parser.add_argument("--num_devices", type=int, default=None,
                         help="Device count for inference (only 1 so far)")
     parser.add_argument("--output_base", type=str, default=".",
@@ -98,8 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "TIFF) into predict_run_*/unmixed/")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
-                        help="Local mode: run on the CUDA card (default) or "
-                             "the CPU")
+                        help="Local and artifact modes: run on the CUDA card "
+                             "(default) or the CPU")
     return parser
 
 
@@ -138,9 +146,23 @@ def _prepare_local(args):
         m, h, w, _ = tiles.shape
         # one batch shape, no larger than needed; padded rows sliced off
         eff_batch = min(args.batch_size, m)
+        int8_scales = None
+        if args.int8:
+            # self-calibration: the input tiles ARE the serving
+            # distribution, so activation ranges come from a prefix of them
+            import torch
+
+            from crosstalk_tpu_torch.data.transforms import normalize_batch_nhwc
+            from crosstalk_tpu_torch.eval.int8_forward import calibrate_int8
+
+            calib = normalize_batch_nhwc(torch.from_numpy(tiles[: min(256, m)]).to(device))
+            print(f"Calibrating int8 activation ranges on {calib.shape[0]} tiles...")
+            int8_scales = calibrate_int8(
+                model_cfg, {k: v.to(device) for k, v in state_dict.items()}, calib)
         predict = make_predictor(
             state_dict, model_cfg, batch_size=eff_batch, image_size=h,
-            fast=args.fast, device=args.device, warmup=False,
+            fast=args.fast or args.int8, device=args.device, warmup=False,
+            int8_scales=int8_scales,
         )
         preds = np.empty((m,), dtype=np.float32)
         for start in range(0, m, eff_batch):
@@ -158,6 +180,44 @@ def _prepare_local(args):
         return image_size_compatible(state_dict, args.model_options, size)
 
     return px, compat, score
+
+
+def _prepare_artifact(args):
+    """-> (native_px or None, compat, score_fn) or None on error. Inference
+    with an AOT artifact: torch alone, no model code, no checkpoint. A
+    pinned-batch artifact dictates its chunk size."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.device import device_label, resolve_device
+    from crosstalk_tpu_torch.io.export import load_exported
+
+    device = resolve_device(args.device)  # raises when CUDA is missing
+    print("--- Loading AOT artifact ---")
+    try:
+        fn, meta = load_exported(args.artifact, device=args.device)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"Error loading artifact {args.artifact}: {e}")
+        return None
+    print(f"Using device: {device_label(device)} x1")
+    px = meta.get("image_size")
+    px = int(px) if px is not None else None
+    meta_bs = meta.get("batch_size", "dynamic")
+    print(f"Artifact: batch {meta_bs}, {meta.get('path', '?')} path")
+
+    def score(tiles):
+        m, h, w, _ = tiles.shape
+        eff_batch = min(args.batch_size, m) if meta_bs == "dynamic" else int(meta_bs)
+        preds = np.empty((m,), dtype=np.float32)
+        for start in range(0, m, eff_batch):
+            chunk = np.asarray(tiles[start:start + eff_batch], np.float32)
+            real = chunk.shape[0]
+            if real < eff_batch and meta_bs != "dynamic":
+                pad = np.zeros((eff_batch - real, h, w, 2), dtype=np.float32)
+                chunk = np.concatenate([chunk, pad], axis=0)
+            preds[start:start + real] = fn(chunk)[:real]
+        return preds
+
+    return px, (lambda size: px is None or size == px), score
 
 
 def _prepare_remote(args):
@@ -218,22 +278,28 @@ def _grid_images(images, px):
 
 def _check_flags(args):
     """-> an error message for a bad or not-yet-ported flag, or None."""
-    if args.artifact is not None:
-        return ("Error: --artifact is not available in this package yet (the "
-                "export artifact is a later slice); use -p or --url.")
-    if args.int8:
-        return ("Error: --int8 is not available in this package yet (the "
-                "int8 tier is a later slice).")
     if args.num_devices not in (None, 1):
         return (f"Error: --num_devices {args.num_devices}: this package "
                 "predicts on one device only so far.")
-    if (args.model_path is None) == (args.url is None):
-        return ("Error: exactly one of -p/--model_path (local checkpoint) or "
-                "--url (remote server) is required.")
+    if sum(x is not None for x in (args.model_path, args.url, args.artifact)) != 1:
+        return ("Error: exactly one of -p/--model_path (local checkpoint), "
+                "--artifact (local AOT artifact), or --url (remote server) "
+                "is required.")
     if args.url is not None and args.request_tiles <= 0:
         return f"Error: --request_tiles must be positive, got {args.request_tiles}"
     if args.batch_size <= 0:
         return f"Error: --batch_size must be positive, got {args.batch_size}"
+    if args.int8 and args.model_path is None:
+        return ("Error: --int8 requires a local checkpoint (-p); servers "
+                "choose their own tier (--quantize on cli/serve) and AOT "
+                "artifacts carry theirs from export time "
+                "(tools/export_model --quantize int8).")
+    if args.int8 and args.fast:
+        return ("Error: --int8 and --fast are distinct serving tiers — pass "
+                "exactly one.")
+    if args.int8 and args.model_options == "double":
+        return ("Error: --int8 is gated to the single-branch family, as in the "
+                "JAX package. Use --fast instead.")
     return None
 
 
@@ -274,7 +340,12 @@ def main(argv=None) -> int:
         return 1
     n, h, w, _ = images.shape
 
-    prep = _prepare_remote(args) if args.url is not None else _prepare_local(args)
+    if args.url is not None:
+        prep = _prepare_remote(args)
+    elif args.artifact is not None:
+        prep = _prepare_artifact(args)
+    else:
+        prep = _prepare_local(args)
     if prep is None:
         return 1
     px, compat, score = prep

@@ -1,10 +1,13 @@
 """Serving CLI (port of crosstalk_tpu/cli/serve.py): online inference over
 HTTP with dynamic batching.
 
-Loads a ``.pth``, warms the serving forward at every batch shape, and
-coalesces concurrent HTTP requests into full device batches. The default
-path is the folded-BN bf16 forward with block 0 in the fused CUDA
-input-block kernel; ``--parity`` serves the float32 module with TF32 off.
+Loads a ``.pth`` (or an AOT artifact, ``--artifact``), warms the serving
+forward at every batch shape, and coalesces concurrent HTTP requests into
+full device batches. The default path is the folded-BN bf16 forward with
+block 0 in the fused CUDA input-block kernel; ``--parity`` serves the
+float32 module with TF32 off; ``--quantize int8`` the opt-in int8 tier,
+calibrated at startup (and again on every ``/reload``) on tiles from
+``--calibration_mixed_dir``/``--calibration_source_dir``.
 
     python -m crosstalk_tpu_torch.cli.serve -p model.pth -o single --port 8000
     curl -s http://127.0.0.1:8000/healthz
@@ -27,8 +30,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-p", "--model_path", type=str, default=None,
                         help="Path to the .pth checkpoint to serve")
     parser.add_argument("--artifact", type=str, default=None,
-                        help="Not available in this package yet (the "
-                             "export artifact is a later slice)")
+                        help="Serve an AOT artifact (crosstalk_tpu_torch."
+                             "tools.export_model) instead of a checkpoint. Its "
+                             "image size overrides the flags; dynamic-batch "
+                             "artifacts (the export default) serve at "
+                             "--batch_size, pinned ones dictate their own")
     parser.add_argument("-o", "--model_options", type=str, default="single",
                         choices=["single", "double"],
                         help="Use single- or double-branch model")
@@ -64,14 +70,23 @@ def build_parser() -> argparse.ArgumentParser:
                              "off) instead of the bf16 serving path")
     parser.add_argument("--quantize", type=str, default=None,
                         choices=["int8"],
-                        help="Not available in this package yet (the int8 "
-                             "tier is a later slice)")
+                        help="Serve the opt-in int8 tier instead of bf16 "
+                             "(prediction error OUTSIDE the 1e-4 parity "
+                             "budget). Requires -p and the --calibration_* "
+                             "dirs; incompatible with --parity")
     parser.add_argument("--calibration_mixed_dir", type=str, default=None,
-                        help="--quantize int8 only (not available yet)")
+                        help="--quantize int8: directory of mixed-channel "
+                             "tiles drawn from the serving distribution "
+                             "(paired with --calibration_source_dir by "
+                             "filename, labeled or unlabeled schema); the "
+                             "activation ranges are calibrated on up to "
+                             "--calibration_tiles of them at startup")
     parser.add_argument("--calibration_source_dir", type=str, default=None,
-                        help="--quantize int8 only (not available yet)")
+                        help="--quantize int8: directory of pure-source "
+                             "tiles paired with --calibration_mixed_dir")
     parser.add_argument("--calibration_tiles", type=int, default=256,
-                        help="--quantize int8 only (not available yet)")
+                        help="--quantize int8: max tile pairs used for "
+                             "activation-range calibration")
     parser.add_argument("--num_devices", type=int, default=None,
                         help="Device count (only 1 so far)")
     parser.add_argument("--request_timeout", type=float, default=120.0,
@@ -100,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
                              ".pth loads and warms up while the old model "
                              "keeps serving, then batches switch over "
                              "atomically). Loading a .pth unpickles it — "
-                             "enable only on trusted/admin networks")
+                             "enable only on trusted/admin networks. "
+                             "Requires -p (not --artifact)")
     parser.add_argument("--verbose", action="store_true",
                         help="Log each HTTP request")
     parser.add_argument("--device", type=str, default="cuda",
@@ -114,48 +130,113 @@ class SetupError(Exception):
 
 
 def _check_flags(args) -> None:
-    """Reject bad values and flags whose slice has not landed, before any
-    weights load."""
+    """Reject bad values and conflicting or not-yet-ported flags, before
+    any weights load (the JAX serve CLI's checks, in its order)."""
     if not 0 <= args.port <= 65535:
         raise SetupError(f"Error: --port must be in 0-65535, got {args.port}")
     if args.image_size is not None and args.image_size <= 0:
         raise SetupError(
             f"Error: --image_size must be positive, got {args.image_size}")
-    if args.artifact:
-        raise SetupError("Error: --artifact is not available in this package "
-                         "yet (the export artifact is a later slice); serve "
-                         "a checkpoint with -p.")
-    if not args.model_path:
+    if bool(args.model_path) == bool(args.artifact):
         raise SetupError("Error: pass exactly one of -p/--model_path or "
                          "--artifact.")
     if args.quantize is not None:
-        raise SetupError("Error: --quantize int8 is not available in this "
-                         "package yet (the int8 tier is a later slice).")
-    if args.calibration_mixed_dir or args.calibration_source_dir:
+        if not args.model_path:
+            raise SetupError(
+                "Error: --quantize int8 requires a checkpoint (-p); to serve "
+                "an int8 AOT artifact, export it with tools/export_model "
+                "--quantize int8 (the tier is part of the artifact).")
+        if args.parity:
+            raise SetupError("Error: --quantize int8 and --parity are mutually "
+                             "exclusive (int8 is far outside the parity "
+                             "budget).")
+        if args.model_options == "double":
+            raise SetupError("Error: --quantize int8 is gated to the "
+                             "single-branch family, as in the JAX package. "
+                             "Serve the default bf16 tier instead.")
+        if not (args.calibration_mixed_dir and args.calibration_source_dir):
+            raise SetupError(
+                "Error: --quantize int8 requires --calibration_mixed_dir and "
+                "--calibration_source_dir (tiles from the serving "
+                "distribution to calibrate activation ranges on).")
+        if args.calibration_tiles <= 0:
+            raise SetupError(f"Error: --calibration_tiles must be positive, "
+                             f"got {args.calibration_tiles}")
+    elif args.calibration_mixed_dir or args.calibration_source_dir:
         raise SetupError("Error: --calibration_* dirs only apply with "
                          "--quantize int8.")
+    if args.batch_buckets and not args.model_path:
+        raise SetupError("Error: --batch_buckets requires a checkpoint (-p); "
+                         "an artifact is served at one batch shape.")
     if args.num_devices not in (None, 1):
         raise SetupError(f"Error: --num_devices {args.num_devices}: this "
                          "package serves on one device only so far.")
+    if args.artifact:
+        if args.transport_dtype != "float32":
+            raise SetupError("Error: --transport_dtype float16 requires a "
+                             "checkpoint (-p); AOT artifacts are exported "
+                             "for float32 input.")
+        if args.allow_reload:
+            raise SetupError("Error: --allow_reload requires a checkpoint (-p); "
+                             "AOT artifacts carry their weights in the file.")
 
 
-def build_server(args):
-    """Parsed flags -> (CrosstalkServer, model_info), not yet serving.
+def _load_calibration_batch(args, image_size: int):
+    """Pair, decode and normalize up to --calibration_tiles pairs for int8
+    activation-range calibration -> (n, px, px, 2) f32 normalized array."""
+    from crosstalk_tpu_torch.eval.int8_forward import load_calibration_tiles
 
-    Loads the checkpoint, builds the predictor (which warms every batch
-    shape on this thread, building the input-block kernel on the card) and
-    binds the port. Raises SetupError with the message to print; a missing
-    card raises RuntimeError from ``resolve_device``."""
-    _check_flags(args)
-    buckets = None
-    if args.batch_buckets:
-        from crosstalk_tpu_torch.serve.batcher import parse_batch_buckets
+    try:
+        return load_calibration_tiles(
+            args.calibration_mixed_dir, args.calibration_source_dir,
+            image_size, max_tiles=args.calibration_tiles)
+    except (ValueError, FileNotFoundError, OSError) as e:
+        raise SetupError(f"Error loading calibration tiles: {e}")
 
-        try:
-            buckets = parse_batch_buckets(args.batch_buckets, args.batch_size)
-        except ValueError as e:
-            raise SetupError(f"Error: {e}")
 
+def _artifact_predictor(args):
+    """-> (predict, batch_size, image_size, model_info) for ``--artifact``;
+    the program runs once at the serving shape before this returns."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.device import device_label, resolve_device
+    from crosstalk_tpu_torch.io.export import load_exported
+
+    device = resolve_device(args.device)  # raises when CUDA is missing
+    print("--- Loading AOT artifact ---")
+    try:
+        fn, meta = load_exported(args.artifact, device=args.device)
+    except (FileNotFoundError, ValueError) as e:
+        raise SetupError(f"Error loading artifact {args.artifact}: {e}")
+    meta_bs = meta.get("batch_size", "dynamic")
+    # dynamic-batch artifacts serve at --batch_size; a pinned one dictates
+    batch_size = args.batch_size if meta_bs == "dynamic" else int(meta_bs)
+    meta_px = meta.get("image_size")
+    if (meta_px is not None and args.image_size is not None
+            and int(meta_px) != args.image_size):
+        raise SetupError(f"Error: --image_size {args.image_size} does not match "
+                         f"the artifact (exported for {int(meta_px)}px tiles).")
+    image_size = int(meta_px or args.image_size or 256)
+    shape = (batch_size, image_size, image_size, 2)
+
+    def predict(raw: np.ndarray) -> np.ndarray:
+        if raw.shape != shape:
+            raise ValueError(f"predict expects shape {shape}, got {raw.shape}")
+        return fn(raw)
+
+    predict(np.zeros(shape, np.float32))  # before the first request arrives
+    name = device_label(device)
+    print(f"Using device: {name} x1")
+    print(f"Serving artifact (batch {batch_size}, {image_size}px, "
+          f"{meta.get('path', '?')} path)")
+    info = {"artifact": args.artifact, **meta, "batch_size": batch_size,
+            "devices": 1, "device": name}
+    return predict, batch_size, image_size, info
+
+
+def _checkpoint_predictor(args, buckets):
+    """-> (predict, batch_size, image_size, model_info, reload_fn or None)
+    for a ``.pth``."""
     import numpy as np
 
     from crosstalk_tpu_torch.config import ModelConfig
@@ -169,7 +250,6 @@ def build_server(args):
         model_config_for_checkpoint,
     )
     from crosstalk_tpu_torch.serve.predictor import make_predictor
-    from crosstalk_tpu_torch.serve.server import CrosstalkServer
 
     device = resolve_device(args.device)  # raises when CUDA is missing
     variant = args.model_options
@@ -211,26 +291,44 @@ def build_server(args):
 
     name = device_label(device)
     print(f"Using device: {name} x1")
+    calib_batch = None
+
+    def calibrate(sd):
+        # one calibration site for startup AND /reload: activation ranges
+        # depend on the weights upstream of each quantize point
+        from crosstalk_tpu_torch.eval.int8_forward import calibrate_int8
+
+        return calibrate_int8(model_cfg, {k: v.to(device) for k, v in sd.items()},
+                              calib_batch)
+
+    scales = None
+    if args.quantize == "int8":
+        calib_batch = _load_calibration_batch(args, image_size)
+        print(f"Calibrating int8 activation ranges on {calib_batch.shape[0]} "
+              "tile pairs...")
+        scales = calibrate(state_dict)
+
     batch_size = args.batch_size
     serve_sizes = (buckets or []) + [batch_size]
-    path_name = "f32 parity" if args.parity else "bf16 serving"
+    path = ("f32-parity" if args.parity else "int8-serving" if args.quantize
+            else "bf16-serving")
     shapes = f"batch {batch_size}" + (f" + buckets {buckets}" if buckets else "")
-    print(f"Warming up the serving path ({shapes}, {path_name} path)...")
+    print(f"Warming up the serving path ({shapes}, {path.replace('-', ' ')} path)...")
 
-    def predictor(sd):
+    def predictor(sd, int8_scales):
         return make_predictor(
             sd, model_cfg, serve_sizes, image_size=image_size,
             fast=not args.parity, input_dtype=np.dtype(args.transport_dtype),
-            device=args.device,
+            device=args.device, int8_scales=int8_scales,
         )
 
-    predict = predictor(state_dict)
+    predict = predictor(state_dict, scales)
     model_info = {
         "model": variant,
         **size,
         "checkpoint": args.model_path,
         "image_size": image_size,
-        "path": "f32-parity" if args.parity else "bf16-serving",
+        "path": path,
         "batch_size": batch_size,
         "devices": 1,
         "device": name,
@@ -238,11 +336,14 @@ def build_server(args):
     }
     if buckets:
         model_info["batch_buckets"] = buckets
+    if scales is not None:
+        model_info["int8_scales"] = scales
 
     reload_fn = None
     if args.allow_reload:
         # POST /reload: load and warm the new checkpoint with the SAME
-        # serving configuration, then the server swaps it in atomically
+        # serving configuration (recalibrated for the int8 tier), then the
+        # server swaps it in atomically
         def reload_fn(path):
             new_sd = load_pth(path)
             new_size = infer_model_size(new_sd, variant)
@@ -257,7 +358,40 @@ def build_server(args):
                     f"tile-size mismatch: serving {image_size}px, reload "
                     f"candidate was trained at {new_px}px — restart the "
                     "server to change tile size")
-            return predictor(new_sd), {**model_info, "checkpoint": path}
+            new_scales = calibrate(new_sd) if calib_batch is not None else None
+            info = {**model_info, "checkpoint": path}
+            if new_scales is not None:
+                info["int8_scales"] = new_scales
+            return predictor(new_sd, new_scales), info
+
+    return predict, batch_size, image_size, model_info, reload_fn
+
+
+def build_server(args):
+    """Parsed flags -> (CrosstalkServer, model_info), not yet serving.
+
+    Loads the checkpoint (calibrating the int8 tier when asked) or the
+    artifact, builds the predictor (which warms every batch shape on this
+    thread, building the input-block kernel on the card) and binds the
+    port. Raises SetupError with the message to print; a missing card
+    raises RuntimeError from ``resolve_device``."""
+    _check_flags(args)
+    from crosstalk_tpu_torch.serve.server import CrosstalkServer
+
+    buckets = None
+    reload_fn = None
+    if args.artifact:
+        predict, batch_size, image_size, model_info = _artifact_predictor(args)
+    else:
+        if args.batch_buckets:
+            from crosstalk_tpu_torch.serve.batcher import parse_batch_buckets
+
+            try:
+                buckets = parse_batch_buckets(args.batch_buckets, args.batch_size)
+            except ValueError as e:
+                raise SetupError(f"Error: {e}")
+        predict, batch_size, image_size, model_info, reload_fn = (
+            _checkpoint_predictor(args, buckets))
 
     server = CrosstalkServer(
         predict,

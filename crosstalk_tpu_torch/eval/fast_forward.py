@@ -8,7 +8,8 @@ folds a state_dict once and returns ``forward(batch_nhwc) -> (B, 1)``:
 
   * block 0 (1-2 input channels) runs through the fused input-block kernel
     (ops/input_block.py, CUDA on the card); the two-branch model's pair of
-    C=1 first blocks runs as ONE block-diagonal call of that kernel;
+    C=1 first blocks runs as ONE block-diagonal call of that kernel
+    (``make_first_block``, which the int8 tier shares);
   * blocks 1+ are bf16 cuDNN convs in channels_last followed by the folded
     affine, LeakyReLU and pool as torch ops in bf16;
   * the head is bf16 matmuls whose products stay in f32, with the affine
@@ -18,6 +19,7 @@ folds a state_dict once and returns ``forward(batch_nhwc) -> (B, 1)``:
 from __future__ import annotations
 
 import math
+import struct
 from typing import Callable, List, NamedTuple
 
 import torch
@@ -73,10 +75,23 @@ def _fold_dense(sd: StateDict, head: str, lin: int, bn: int, eps: float,
     return _Dense(weight.to(_BF16).contiguous(), scale.float(), bias.float())
 
 
+def bf16_value(v: float) -> float:
+    """``v`` rounded to the nearest bf16, ties to even: the JAX epilogues'
+    ``jnp.asarray(slope, bf16)``. In plain Python, so that an export trace
+    sees a constant."""
+    bits = struct.unpack("<I", struct.pack("<f", v))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
 def _conv_block_eval(x: torch.Tensor, blk: _Conv, slope: float) -> torch.Tensor:
-    """NCHW (channels_last) -> bf16 conv, affine, LeakyReLU, 2x2 max pool."""
+    """NCHW (channels_last) -> bf16 conv, affine, LeakyReLU, 2x2 max pool.
+
+    The LeakyReLU's slope is the bf16 one, as in the JAX package's
+    ``_conv_block_eval``; the bf16 x bf16 product is exact in the kernel's
+    f32 arithmetic and rounds once, as XLA's does."""
     y = F.conv2d(x.to(_BF16), blk.weight, padding=1)
-    y = F.leaky_relu(y * blk.scale + blk.bias, slope)
+    y = F.leaky_relu(y * blk.scale + blk.bias, bf16_value(slope))
     return F.max_pool2d(y, 2)
 
 
@@ -106,71 +121,98 @@ def _kernel_gate(x: torch.Tensor) -> bool:
     return x.shape[-1] <= 4 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
 
 
-def make_fast_forward(cfg: ModelConfig, state_dict: StateDict) -> Callable:
+def make_first_block(cfg: ModelConfig, state_dict: StateDict,
+                     use_kernel: bool = True) -> Callable:
+    """Block 0 of every branch, shared by the bf16 and the int8 forwards and
+    the int8 calibration, so the three cannot diverge.
+
+    -> ``first(batch_nhwc)`` -> one (B, F, H/2, W/2) bf16 channels_last
+    tensor per branch. Through the gate (``_kernel_gate``) and with
+    ``use_kernel`` it is one fused input-block call: the HWIO kernel and
+    affine packed once here; for the two-branch model both branches' C=1
+    kernels stacked block-diagonally into one C=2 -> 2F call (bleed reads
+    channel 0 into [:F], source channel 1 into [F:]), exactly the flagship
+    single-branch kernel shape. Otherwise each branch's block 0 runs on the
+    bf16 conv path of ``_conv_block_eval`` (the exported programs' route:
+    ``use_kernel=False``).
+    """
+    eps, slope, double = cfg.bn_eps, cfg.leaky_slope, cfg.variant == "double"
+    sd = state_dict
+    prefixes = [p for p, _ in structure(cfg.variant)[0]]
+    packed = None
+    if use_kernel:
+        first = [_block_affine(sd, p, 0, eps) for p in prefixes]
+        if double:
+            (kb, sb, bb), (ks, ss, bs) = first
+            f = kb.shape[-1]
+            k0 = torch.zeros((3, 3, 2, 2 * f), dtype=kb.dtype, device=kb.device)
+            k0[:, :, 0:1, :f] = kb
+            k0[:, :, 1:2, f:] = ks
+            packed = pack_input_block(k0, torch.cat([sb, ss]), torch.cat([bb, bs]))
+        else:
+            packed = pack_input_block(*first[0])
+    convs = [_fold_conv(sd, p, 0, eps) for p in prefixes]
+
+    def run(x: torch.Tensor) -> List[torch.Tensor]:
+        if packed is not None and _kernel_gate(x):
+            z = fused_input_block_packed(x, packed, slope=slope).permute(0, 3, 1, 2)
+            f = z.shape[1] // len(convs)
+            feats = [z[:, i * f:(i + 1) * f] for i in range(len(convs))]
+            return [a.contiguous(memory_format=torch.channels_last) for a in feats]
+        x_nchw = x.permute(0, 3, 1, 2)
+        feats = [x_nchw[:, 0:1], x_nchw[:, 1:2]] if double else [x_nchw]
+        return [_conv_block_eval(a.contiguous(memory_format=torch.channels_last), blk, slope)
+                for a, blk in zip(feats, convs)]
+
+    return run
+
+
+def head_weights(cfg: ModelConfig, state_dict: StateDict):
+    """-> (the first dense weight with its columns in channels_last (H, W, C)
+    flatten order, f32; the second dense weight, f32).
+
+    The torch head flattens NCHW as (C, H, W); the forwards flatten
+    channels_last activations as (H, W, C), so the first head weight is
+    permuted once. C counts the concatenated bleed-then-source channels."""
+    sd = state_dict
+    branches, head = structure(cfg.variant)
+    channels = sum(sd[f"{p}.{4 * (count_blocks(sd, p) - 1)}.weight"].shape[0]
+                   for p, _ in branches)
+    w1 = sd[f"{head}.1.weight"]
+    side = math.isqrt(w1.shape[1] // channels)
+    w1 = w1.reshape(w1.shape[0], channels, side, side).permute(0, 2, 3, 1)
+    return w1.reshape(w1.shape[0], -1).float(), sd[f"{head}.5.weight"].float()
+
+
+def make_fast_forward(cfg: ModelConfig, state_dict: StateDict,
+                      use_kernel: bool = True) -> Callable:
     """-> ``forward(batch_nhwc) -> (B, 1) float32`` predictions.
 
     The folded weights live on the state_dict's device; ``batch_nhwc`` is a
-    normalized (B, H, W, 2) float32 batch on that device."""
+    normalized (B, H, W, 2) float32 batch on that device. ``use_kernel=False``
+    runs block 0 on the bf16 conv path instead of the fused input-block
+    kernel (the AOT export's program, ``io/export.py``)."""
     eps, slope, double = cfg.bn_eps, cfg.leaky_slope, cfg.variant == "double"
     sd = state_dict
     branches, head = structure(cfg.variant)
     prefixes = [p for p, _ in branches]
-    n_blocks = count_blocks(sd, prefixes[0])
-
-    # block 0 for the kernel: HWIO kernel and affine, packed once; for the
-    # two-branch model, both branches' C=1 kernels stacked block-diagonally
-    # into one C=2 -> 2F call (bleed reads channel 0 into [:F], source
-    # channel 1 into [F:]), exactly the flagship single-branch kernel shape
-    first = [_block_affine(sd, p, 0, eps) for p in prefixes]
-    if double:
-        (kb, sb, bb), (ks, ss, bs) = first
-        f = kb.shape[-1]
-        k0 = torch.zeros((3, 3, 2, 2 * f), dtype=kb.dtype, device=kb.device)
-        k0[:, :, 0:1, :f] = kb
-        k0[:, :, 1:2, f:] = ks
-        first_packed = pack_input_block(k0, torch.cat([sb, ss]), torch.cat([bb, bs]))
-    else:
-        first_packed = pack_input_block(*first[0])
+    first = make_first_block(cfg, sd, use_kernel)
     convs: List[List[_Conv]] = [
-        [_fold_conv(sd, p, i, eps) for i in range(n_blocks)] for p in prefixes
+        [_fold_conv(sd, p, i, eps) for i in range(1, count_blocks(sd, p))]
+        for p in prefixes
     ]
-
-    # the torch head flattens NCHW as (C, H, W); the activations here are
-    # channels_last, flattened as (H, W, C): permute the first head weight
-    # once. C counts the concatenated bleed-then-source channels.
-    w1 = sd[f"{head}.1.weight"]
-    channels = sum(c[-1].weight.shape[0] for c in convs)
-    side = math.isqrt(w1.shape[1] // channels)
-    w1 = w1.reshape(w1.shape[0], channels, side, side).permute(0, 2, 3, 1)
-    dense = [
-        _fold_dense(sd, head, 1, 2, eps, w1.reshape(w1.shape[0], -1)),
-        _fold_dense(sd, head, 5, 6, eps, sd[f"{head}.5.weight"]),
-    ]
+    w1, w5 = head_weights(cfg, sd)
+    dense = [_fold_dense(sd, head, 1, 2, eps, w1), _fold_dense(sd, head, 5, 6, eps, w5)]
     w_out = sd[f"{head}.9.weight"].to(_BF16).contiguous()
     b_out = sd[f"{head}.9.bias"].float()
 
-    def trunk(x_nchw: torch.Tensor, blocks: List[_Conv], start: int):
-        for blk in blocks[start:]:
-            x_nchw = _conv_block_eval(x_nchw, blk, slope)
-        return x_nchw
-
     def forward(x: torch.Tensor) -> torch.Tensor:
-        if _kernel_gate(x):
-            z = fused_input_block_packed(x, first_packed, slope=slope).permute(0, 3, 1, 2)
-            if double:
-                f = z.shape[1] // 2
-                feats = [z[:, :f], z[:, f:]]
-            else:
-                feats = [z]
-            start = 1
-        else:
-            x_nchw = x.permute(0, 3, 1, 2)
-            feats = [x_nchw[:, 0:1], x_nchw[:, 1:2]] if double else [x_nchw]
-            start = 0
-        h = torch.cat([
-            trunk(a.contiguous(memory_format=torch.channels_last), blocks, start)
-            for a, blocks in zip(feats, convs)
-        ], dim=1)
+        feats = []
+        for h, blocks in zip(first(x), convs):
+            for blk in blocks:
+                h = _conv_block_eval(h, blk, slope)
+            feats.append(h)
+        h = torch.cat(feats, dim=1)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         for d in dense:
             h = _dense_bn_eval(h, d, slope)

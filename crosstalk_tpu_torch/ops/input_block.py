@@ -30,8 +30,14 @@ from crosstalk_tpu_torch.ops import _build
 
 
 def fold_bn_affine(conv_bias, bn_scale, bn_bias, bn_mean, bn_var, eps=1e-5):
-    """Fold eval-mode BatchNorm (+ the conv bias) into (scale, bias)."""
-    scale = bn_scale * torch.rsqrt(bn_var + eps)
+    """Fold eval-mode BatchNorm (+ the conv bias) into (scale, bias).
+
+    ``rsqrt`` is taken as ``1 / sqrt`` in float64, IEEE operations that
+    give the same f32 on the card and the CPU. ``torch.rsqrt`` in f32 is an
+    approximation on the card that differs from the CPU's by an ulp in some
+    channels, and the int8 tier's epilogue then rounds differently on the
+    two devices."""
+    scale = bn_scale * torch.sqrt((bn_var + eps).double()).reciprocal().float()
     bias = (conv_bias - bn_mean) * scale + bn_bias
     return scale, bias
 

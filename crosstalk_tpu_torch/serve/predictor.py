@@ -4,8 +4,9 @@ crosstalk_tpu/serve/predictor.py).
 Normalization and the forward run on the device for a fixed set of batch
 sizes (the batcher pads every flush to one of them). The forward is the
 folded-BN bf16 path by default (``eval/fast_forward.py``, with block 0 in
-the fused CUDA input-block kernel on the card), or the float32 ``nn.Module``
-with TF32 off for checkpoint-parity serving.
+the fused CUDA input-block kernel on the card), the opt-in int8 tier
+(``eval/int8_forward.py``, block 0 in the same kernel), or the float32
+``nn.Module`` with TF32 off for checkpoint-parity serving.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ def make_predictor(
     input_dtype=np.float32,
     device="cuda",
     warmup: bool = True,
+    int8_scales=None,
 ) -> Callable[[np.ndarray], np.ndarray]:
     """-> fn((n, H, W, 2) ``input_dtype`` np) -> (n,) float32 np.
 
@@ -39,7 +41,9 @@ def make_predictor(
     ``input_dtype=np.float16`` takes float16 batches and upcasts them on
     the device, so the host-to-device copy moves half the bytes;
     normalization still runs in float32. ``device`` is ``'cuda'`` (the
-    default; raises without a card) or ``'cpu'``.
+    default; raises without a card) or ``'cpu'``. ``int8_scales`` (from
+    ``eval.int8_forward.calibrate_int8``) serves the opt-in int8 tier; it
+    requires ``fast`` and is OUTSIDE the 1e-4 parity budget.
 
     With ``warmup`` every bucket runs once, largest first, before this
     returns: on the card that builds and loads the input-block kernel on the
@@ -57,7 +61,8 @@ def make_predictor(
     if not sizes or sizes[0] <= 0:
         raise ValueError(f"batch sizes must be positive, got {sizes}")
     forward = make_forward(model_cfg, state_dict, fast=fast,
-                           image_size=image_size, device=device)
+                           image_size=image_size, device=device,
+                           int8_scales=int8_scales)
     shape = (image_size, image_size, 2)
 
     @torch.inference_mode()

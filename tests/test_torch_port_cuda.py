@@ -114,14 +114,15 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 # --- the serving path on the card ------------------------------------------
 
-def _small_checkpoint(variant):
-    """A small port model (8 filters, 3 blocks at 32 px) with BN statistics
-    moved off their init by three train-mode forwards on the CPU."""
+def _small_checkpoint(variant, per_branch=4):
+    """A small port model (8 filters, or ``per_branch`` per branch, 3 blocks
+    at 32 px) with BN statistics moved off their init by three train-mode
+    forwards on the CPU."""
     from crosstalk_tpu_torch.config import ModelConfig
     from crosstalk_tpu_torch.models.registry import build_model, init_model
 
     cfg = ModelConfig(variant=variant, initial_filters=8, num_conv_blocks=3,
-                      initial_filters_per_branch=4)
+                      initial_filters_per_branch=per_branch)
     model = init_model(build_model(cfg, image_size=32), torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     model.train()
@@ -279,3 +280,153 @@ def test_cuda_device_dataset_order_equals_iterate_batches(cuda_device, tmp_path)
             assert torch.equal(d.labels.cpu(), torch.from_numpy(h.labels))
             assert np.array_equal(d.ids, h.ids)
             assert torch.equal(d.mask.cpu(), torch.from_numpy(h.mask))
+
+
+# --- the int8 tier and the AOT artifact on the card -------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,n", [(2, 32, 32, 128, 256), (1, 8, 8, 512, 512),
+                                       (3, 10, 14, 64, 128)])
+def test_cuda_int8_block_matches_cpu_bitwise(cuda_device, b, h, w, c, n):
+    """One int8 conv block from the same bf16 input, folded weights and
+    clip: cuBLASLt's int32 accumulators and the bf16 block output equal the
+    CPU's bit for bit."""
+    from crosstalk_tpu_torch.eval.int8_forward import (
+        _conv3x3_int8,
+        _quant_act,
+        conv_block_int8,
+        prepare_conv_int8,
+    )
+
+    gen = torch.Generator().manual_seed(b * 7 + c)
+    x = torch.randn(b, h, w, c, generator=gen).to(torch.bfloat16)
+    kernel = torch.randn(3, 3, c, n, generator=gen) * 0.05
+    scale = torch.randn(n, generator=gen) * 0.3 + 1.0
+    scale[::3] *= -1
+    bias = torch.randn(n, generator=gen) * 0.2
+    out = {}
+    for dev in ("cpu", "cuda"):
+        blk = prepare_conv_int8(kernel.to(dev), scale.to(dev), bias.to(dev), 2.5)
+        xd = x.to(dev)
+        out[dev] = (_conv3x3_int8(_quant_act(xd, 2.5), blk.weight).cpu(),
+                    conv_block_int8(xd, blk, 0.01).cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1].view(torch.int16), out["cpu"][1].view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_head_pads_short_batches(cuda_device):
+    """``_int_mm`` on the card takes more than 16 rows: the int8 head pads
+    a batch of 2 and matches the CPU exactly; channel counts that are not
+    multiples of 8 raise rather than fall back to a float product."""
+    from crosstalk_tpu_torch.eval.int8_forward import _int_mm
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randint(-127, 128, (2, 64), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (32, 64), generator=gen, dtype=torch.int8).t()
+    assert torch.equal(_int_mm(a.cuda(), b.cuda()).cpu(), _int_mm(a, b))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _int_mm(a[:, :60].contiguous().cuda(), b[:60].cuda())
+
+
+@pytest.mark.cuda
+def test_cuda_int8_predictor_matches_cpu_and_launches_k1(cuda_device):
+    """The int8 tier on the card against the CPU from one set of scales,
+    within 2e-3: block 0 is K1 against its plain version (one bf16 ulp
+    apart), which moves a few int8 activations by one step; blocks 1+ are
+    exact. K1 is launched by the calibration and by every predict call."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.data.transforms import normalize_batch_nhwc
+    from crosstalk_tpu_torch.eval.int8_forward import calibrate_int8
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+
+    cfg, sd = _small_checkpoint("single")
+    raw = _raw_tiles(32, seed=4)
+    before = fused_input_block.launches
+    scales = calibrate_int8(cfg, {k: v.cuda() for k, v in sd.items()},
+                            normalize_batch_nhwc(torch.from_numpy(raw).cuda()))
+    assert fused_input_block.launches - before == 1
+    on_card = make_predictor(sd, cfg, 32, image_size=32, device="cuda", int8_scales=scales)
+    on_cpu = make_predictor(sd, cfg, 32, image_size=32, device="cpu", int8_scales=scales)
+    before = fused_input_block.launches
+    got = on_card(raw)
+    assert fused_input_block.launches - before == 1
+    np.testing.assert_allclose(got, on_cpu(raw), rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["single", "double"])
+@pytest.mark.parametrize("int8_dense", [False, True], ids=["bf16_head", "int8_head"])
+def test_cuda_int8_after_block0_matches_cpu(cuda_device, variant, int8_dense):
+    """Everything after block 0 on the card against the CPU, one set of
+    scales: the trunk (the int8 blocks, the concat, the flatten) from one
+    block-0 output bitwise; the head (the two-branch sigmoid included) from
+    one feature tensor within 1e-6 for the int8 head (the last product sums
+    f32 in another order) and within the bf16 fast path's 5e-4 for the bf16
+    head (its bf16 casts between the layers round some of those f32
+    differences apart: 7.1e-5 measured on an H100). The predictions spread
+    over more than 1e-3. The two-branch model has 8 filters per branch:
+    ``_int_mm`` on the card takes K = 9 * C_in in multiples of 8."""
+    from crosstalk_tpu_torch.data.transforms import normalize_batch_nhwc
+    from crosstalk_tpu_torch.eval.fast_forward import make_first_block
+    from crosstalk_tpu_torch.eval.int8_forward import (
+        calibrate_int8,
+        make_int8_head,
+        make_int8_trunk,
+    )
+
+    cfg, sd = _small_checkpoint(variant, per_branch=8)
+    if variant == "double":  # so that its sigmoid outputs spread apart
+        key = "regression_head.fc_layers.9.weight"
+        sd[key] = sd[key] * 16
+    on_card = {k: v.cuda() for k, v in sd.items()}
+    x = normalize_batch_nhwc(torch.from_numpy(_raw_tiles(32, seed=6)))
+    scales = calibrate_int8(cfg, sd, x, int8_dense=int8_dense)
+    with torch.inference_mode():
+        block0 = make_first_block(cfg, sd)(x)
+        feats = make_int8_trunk(cfg, sd, scales)(block0)
+        got_feats = make_int8_trunk(cfg, on_card, scales)([h.cuda() for h in block0]).cpu()
+        want = make_int8_head(cfg, sd, scales)(feats)
+        got = make_int8_head(cfg, on_card, scales)(feats.cuda()).cpu()
+    assert torch.equal(got_feats.view(torch.int16), feats.view(torch.int16))
+    spread = float(want.max() - want.min())
+    assert spread > 1e-3
+    tol = 1e-6 if int8_dense else 5e-4
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["fast", "int8"])
+def test_cuda_artifact_exported_and_loaded_on_the_card(cuda_device, tmp_path, tier):
+    """An artifact traced on the card loads there and matches the live
+    tier without the kernel within 1e-6; it refuses the CPU."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.data.transforms import normalize_batch_nhwc
+    from crosstalk_tpu_torch.eval.int8_forward import calibrate_int8
+    from crosstalk_tpu_torch.io.export import (
+        export_serving_model,
+        load_exported,
+        make_forward,
+        save_exported,
+    )
+
+    cfg, sd = _small_checkpoint("single")
+    raw = _raw_tiles(6, seed=5)
+    scales = None
+    if tier == "int8":
+        scales = calibrate_int8(cfg, {k: v.cuda() for k, v in sd.items()},
+                                normalize_batch_nhwc(torch.from_numpy(raw).cuda()),
+                                use_kernel=False)
+    program, weights = export_serving_model(sd, cfg, None, image_size=32, device="cuda",
+                                            int8_scales=scales)
+    path = str(tmp_path / "m.ctkt")
+    save_exported(path, program, weights, {"device": "cuda", "batch_size": "dynamic"})
+    fn, _ = load_exported(path)
+    live = make_forward(cfg, sd, device="cuda", use_kernel=False, int8_scales=scales)
+    with torch.inference_mode():
+        want = live(torch.from_numpy(raw).cuda()).cpu().numpy()
+    np.testing.assert_allclose(fn(raw), want, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="exported for device type 'cuda'"):
+        load_exported(path, device="cpu")

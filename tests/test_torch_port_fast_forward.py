@@ -103,6 +103,30 @@ def test_dense_step_keeps_the_product_in_f32_as_jax_does(n_in, n_out):
     assert np.abs(old - want).max() > 10 * tol
 
 
+def test_conv_block_matches_jax_bitwise_with_the_bf16_slope():
+    """The bf16 conv block against JAX's ``_conv_block_eval``, bit for bit.
+    Small-integer inputs and weights make the conv's sums exact in any
+    order, so the epilogue decides: JAX's LeakyReLU multiplies by the slope
+    rounded to bf16 (0.010009765625). The port's block multiplied by 0.01
+    before this was repaired, which moved 7% of the bf16 outputs."""
+    from crosstalk_tpu.eval.fast_forward import _conv_block_eval as jax_block
+
+    rng = np.random.default_rng(7)
+    x = rng.integers(-2, 3, (2, 12, 12, 8)).astype(np.float32)
+    kernel = rng.integers(-2, 3, (3, 3, 8, 16)).astype(np.float32)
+    scale = rng.normal(1, 0.3, 16).astype(np.float32)
+    bias = rng.normal(0, 0.2, 16).astype(np.float32)
+    want = np.asarray(jax_block(jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(scale),
+                                jnp.asarray(bias), 0.01).astype(jnp.float32))
+    t = torch.from_numpy
+    blk = ff._Conv(t(kernel).permute(3, 2, 0, 1).to(torch.bfloat16),
+                   t(scale).to(torch.bfloat16).view(1, -1, 1, 1),
+                   t(bias).to(torch.bfloat16).view(1, -1, 1, 1))
+    got = ff._conv_block_eval(t(x).permute(0, 3, 1, 2), blk, 0.01)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).float().numpy(), want)
+    assert ff.bf16_value(0.01) == 0.010009765625
+
+
 def test_fast_forward_full_single_width_vs_torch_golden():
     """tests/test_fast_forward.py::test_fast_forward_full_config_torch_parity
     for the port: full single-branch width at 64 px."""

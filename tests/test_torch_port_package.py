@@ -64,6 +64,14 @@ def test_fresh_process_check_covers_the_training_modules():
     } <= names
 
 
+def test_fresh_process_check_covers_the_int8_and_export_modules():
+    names = set(_module_names())
+    assert {
+        "crosstalk_tpu_torch.eval.int8_forward", "crosstalk_tpu_torch.io.export",
+        "crosstalk_tpu_torch.tools.export_model",
+    } <= names
+
+
 def test_import_loads_no_jax_in_a_fresh_process():
     mods = _module_names() + ["chip_smoke"]
     code = (

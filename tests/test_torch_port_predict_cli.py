@@ -219,8 +219,12 @@ def test_remote_eval_same_csv_from_both_packages(tmp_path, port_server):
 # --- flags -----------------------------------------------------------------
 
 @pytest.mark.parametrize("flags,message", [
-    (["--artifact", "m.ctkx"], "--artifact is not available"),
-    (["-p", "m.pth", "--int8"], "--int8 is not available"),
+    (["--artifact", "m.ctkt", "-p", "m.pth"], "exactly one of"),
+    (["-p", "m.pth", "--int8", "--fast"], "distinct serving tiers"),
+    (["--url", "http://h:1", "--int8"], "--int8 requires a local checkpoint"),
+    (["--artifact", "m.ctkt", "--int8"], "--int8 requires a local checkpoint"),
+    (["-p", "m.pth", "--int8", "-o", "double"], "gated to the single-branch family"),
+    (["--artifact", "m.ctkt", "--url", "http://h:1"], "exactly one of"),
     (["-p", "m.pth", "--num_devices", "2"], "--num_devices 2"),
     ([], "exactly one of"),
     (["-p", "m.pth", "--url", "http://h:1"], "exactly one of"),

@@ -585,9 +585,14 @@ def test_port_server_shutdown_before_start_returns():
 # --- the serve CLI ---------------------------------------------------------
 
 @pytest.mark.parametrize("flags,message", [
-    (["--artifact", "m.ctkx"], "--artifact is not available"),
-    (["--quantize", "int8"], "--quantize int8 is not available"),
+    (["--artifact", "m.ctkt"], "exactly one of"),
+    (["--quantize", "int8"], "requires --calibration_mixed_dir"),
     (["--calibration_mixed_dir", "m"], "only apply with --quantize"),
+    (["--calibration_source_dir", "s"], "only apply with --quantize"),
+    (["--quantize", "int8", "--parity"], "mutually exclusive"),
+    (["--quantize", "int8", "-o", "double"], "gated to the single-branch family"),
+    (["--quantize", "int8", "--calibration_mixed_dir", "m", "--calibration_source_dir", "s",
+      "--calibration_tiles", "0"], "--calibration_tiles must be positive"),
     (["--num_devices", "2"], "--num_devices 2"),
     (["--port", "99999"], "--port must be in 0-65535"),
     (["--image_size", "0"], "--image_size must be positive"),
