@@ -12,6 +12,12 @@ test_predictions_{ts}.csv, one scatter PNG per metric).
 Runs on the CUDA card (``--device cpu`` to run on the CPU explicitly).
 The default is the float32 parity mode, with TF32 off; ``--fast`` runs the
 folded-BN bf16 forward with block 0 in the fused CUDA kernel.
+``--num_devices N`` (default: every visible card; 1 with ``--device cpu``)
+evaluates over a replica set: one replica of the forward per card, each
+batch split between them (``parallel.replicated_forward``), where the JAX
+CLI shards one program over a mesh. ``--profile DIR`` writes a
+``torch.profiler`` trace of the evaluation; ``--debug_nans`` fails on the
+first NaN or Inf.
 """
 
 from __future__ import annotations
@@ -68,14 +74,18 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Use the bf16 serving path (folded-BN forward "
                              "with the fused CUDA input block)")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Device count for inference (only 1 so far)")
+                        help="Data-parallel device count for inference "
+                             "(default: every visible card; 1 with --device cpu)")
     parser.add_argument("--cache_dir", type=str, default=None,
                         help="Directory for the packed decoded-tile cache "
                              "(memory-mapped; repeat runs skip TIFF decode)")
     parser.add_argument("--debug_nans", action="store_true",
-                        help="Not available in this package yet")
+                        help="Fail fast on NaN/Inf (note: a genuinely constant "
+                             "tile yields NaN correlation metrics by reference "
+                             "semantics and will trip this)")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
-                        help="Not available in this package yet")
+                        help="Write a torch.profiler trace of the evaluation "
+                             "to DIR")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="Run on the CUDA card (default) or the CPU")
@@ -88,16 +98,6 @@ def main(argv=None) -> int:
     if args.batch_size <= 0:
         print(f"Error: --batch_size must be positive, got {args.batch_size}")
         return 1
-    if args.num_devices not in (None, 1):
-        print(f"Error: --num_devices {args.num_devices}: this package "
-              "evaluates on one device only so far.")
-        return 1
-    for flag, value in (("--debug_nans", args.debug_nans),
-                        ("--profile", args.profile)):
-        if value:
-            print(f"Error: {flag} is not available in this package yet "
-                  "(utils/profiling.py is not ported).")
-            return 1
     if args.num_conv_blocks is not None and args.model_options == "double":
         print("Error: --num_conv_blocks applies to the single-branch model "
               "only (the two-branch trunk is fixed at 4 blocks per branch).")
@@ -119,10 +119,27 @@ def main(argv=None) -> int:
         model_config_for_checkpoint,
     )
     from crosstalk_tpu_torch.models.registry import build_model
+    from crosstalk_tpu_torch.parallel.mesh import (
+        data_mesh,
+        replicated_forward,
+        visible_devices,
+    )
+    from crosstalk_tpu_torch.utils.profiling import enable_debug_checks, maybe_trace
 
     device = resolve_device(args.device)  # raises when CUDA is missing
+    if args.debug_nans:
+        enable_debug_checks()
     set_parity_numerics()
-    print(f"Using device: {device_label(device)} x1")
+    visible = visible_devices(device.type)
+    n_dev = args.num_devices
+    if n_dev is None:
+        n_dev = visible if device.type == "cuda" else 1
+    if n_dev <= 0 or n_dev > visible:
+        print(f"Error: --num_devices {n_dev} requested but only "
+              f"{visible} device(s) are visible.")
+        return 1
+    devices = data_mesh(n_dev, device.type)
+    print(f"Using device: {device_label(device)} x{n_dev}")
 
     ts = artifacts.timestamp()
     output_dir = artifacts.make_eval_run_dir(args.output_base, ts)
@@ -169,19 +186,29 @@ def main(argv=None) -> int:
     store = TileStore(index.samples, jobs=args.cpu_jobs,
                       cache_dir=args.cache_dir)
 
-    if args.fast:
-        from crosstalk_tpu_torch.eval.fast_forward import make_fast_forward
+    def replica(d):
+        # one copy of the weights per device; the fast path packs its K1
+        # weights there (make_first_block)
+        if args.fast:
+            from crosstalk_tpu_torch.eval.fast_forward import make_fast_forward
 
-        forward = make_fast_forward(model_cfg, model.state_dict())
-    else:
-        forward = model_forward(model, args.compute_dtype)
+            return make_fast_forward(model_cfg, {k: v.to(d) for k, v in
+                                                 model.state_dict().items()})
+        if d == next(model.parameters()).device:
+            return model_forward(model, args.compute_dtype)
+        twin = build_model(model_cfg, image_size=image_size, device=d)
+        twin.load_state_dict(model.state_dict())
+        return model_forward(twin, args.compute_dtype)
+
+    forward = replicated_forward(replica, devices)
 
     print("\n--- Evaluating Model ---")
-    evaluate_and_save(
-        forward, store, device,
-        dataset_name="test", output_dir=output_dir, ts=ts,
-        batch_size=args.batch_size,
-    )
+    with maybe_trace(args.profile):
+        evaluate_and_save(
+            forward, store, devices[0],
+            dataset_name="test", output_dir=output_dir, ts=ts,
+            batch_size=args.batch_size, replicas=n_dev,
+        )
     return 0
 
 

@@ -22,9 +22,12 @@ Predicted_Alpha,Num_Tiles,Alpha_Std``). Local inference is float32
 checkpoint parity (TF32 off) by default; ``--fast`` runs the folded-BN bf16
 forward with block 0 in the fused CUDA input-block kernel; ``--int8`` the
 opt-in int8 tier (self-calibrated on the first <=256 input tiles, block 0
-in the same kernel); ``--artifact`` an exported program. Remote mode ships
-tiles over the serving wire (float16 payloads by default). For LABELED
-directories scored against a server, see cli/remote_eval.py.
+in the same kernel); ``--artifact`` an exported program. ``--num_devices
+N`` (default: every visible card; 1 with ``--device cpu``) scores over a
+replica set: one replica of the forward per card, each batch padded to a
+multiple of N and split between them. Remote mode ships tiles over the
+serving wire (float16 payloads by default). For LABELED directories scored
+against a server, see cli/remote_eval.py.
 
 **Whole-image mode**: acquisitions LARGER than the model's native tile size
 (from the checkpoint or the server's health) are gridded into native-size
@@ -93,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "ranges self-calibrate on the first <=256 input "
                              "tiles")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Device count for inference (only 1 so far)")
+                        help="Data-parallel device count for local inference "
+                             "(default: every visible card; 1 with --device cpu)")
     parser.add_argument("--output_base", type=str, default=".",
                         help="Where to create the predict_run_* directory")
     parser.add_argument("--aggregate", type=str, default="median",
@@ -123,10 +127,20 @@ def _prepare_local(args):
         load_pth,
         model_config_for_checkpoint,
     )
+    from crosstalk_tpu_torch.parallel.mesh import data_mesh, visible_devices
     from crosstalk_tpu_torch.serve.predictor import make_predictor
 
     device = resolve_device(args.device)  # raises when CUDA is missing
-    print(f"Using device: {device_label(device)} x1")
+    visible = visible_devices(device.type)
+    n_dev = args.num_devices
+    if n_dev is None:
+        n_dev = visible if device.type == "cuda" else 1
+    if n_dev <= 0 or n_dev > visible:
+        print(f"Error: --num_devices {n_dev} requested but only "
+              f"{visible} device(s) are visible.")
+        return None
+    devices = data_mesh(n_dev, device.type)
+    print(f"Using device: {device_label(device)} x{n_dev}")
 
     print("\n--- Loading model weights ---")
     try:
@@ -146,6 +160,7 @@ def _prepare_local(args):
         m, h, w, _ = tiles.shape
         # one batch shape, no larger than needed; padded rows sliced off
         eff_batch = min(args.batch_size, m)
+        eff_batch += (-eff_batch) % n_dev  # an equal row block per replica
         int8_scales = None
         if args.int8:
             # self-calibration: the input tiles ARE the serving
@@ -161,8 +176,8 @@ def _prepare_local(args):
                 model_cfg, {k: v.to(device) for k, v in state_dict.items()}, calib)
         predict = make_predictor(
             state_dict, model_cfg, batch_size=eff_batch, image_size=h,
-            fast=args.fast or args.int8, device=args.device, warmup=False,
-            int8_scales=int8_scales,
+            fast=args.fast or args.int8, warmup=False,
+            int8_scales=int8_scales, devices=devices,
         )
         preds = np.empty((m,), dtype=np.float32)
         for start in range(0, m, eff_batch):
@@ -277,10 +292,7 @@ def _grid_images(images, px):
 
 
 def _check_flags(args):
-    """-> an error message for a bad or not-yet-ported flag, or None."""
-    if args.num_devices not in (None, 1):
-        return (f"Error: --num_devices {args.num_devices}: this package "
-                "predicts on one device only so far.")
+    """-> an error message for a bad flag, or None."""
     if sum(x is not None for x in (args.model_path, args.url, args.artifact)) != 1:
         return ("Error: exactly one of -p/--model_path (local checkpoint), "
                 "--artifact (local AOT artifact), or --url (remote server) "
@@ -300,6 +312,10 @@ def _check_flags(args):
     if args.int8 and args.model_options == "double":
         return ("Error: --int8 is gated to the single-branch family, as in the "
                 "JAX package. Use --fast instead.")
+    if args.num_devices is not None and args.num_devices != 1 and args.model_path is None:
+        return ("Error: --num_devices > 1 requires a checkpoint (-p); AOT "
+                "artifacts are traced for one device, and a server (--url) "
+                "chooses its own (serve --num_devices).")
     return None
 
 

@@ -13,6 +13,8 @@ calibrated at startup (and again on every ``/reload``) on tiles from
     curl -s http://127.0.0.1:8000/healthz
 
 Runs on the CUDA card (``--device cpu`` to run on the CPU explicitly).
+``--num_devices N`` (default 1, as in the JAX CLI) serves over a replica
+set: one replica of the forward per card, every batch split between them.
 ``build_server`` constructs the server from parsed flags without serving
 it; ``main`` serves until Ctrl-C or SIGTERM, then drains the queue.
 """
@@ -88,7 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="--quantize int8: max tile pairs used for "
                              "activation-range calibration")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Device count (only 1 so far)")
+                        help="Split each batch over this many devices, one "
+                             "replica each (default 1; the batch size and "
+                             "buckets must divide by it)")
     parser.add_argument("--request_timeout", type=float, default=120.0,
                         help="Per-request result timeout, seconds")
     parser.add_argument("--io_timeout", type=float, default=60.0,
@@ -130,8 +134,8 @@ class SetupError(Exception):
 
 
 def _check_flags(args) -> None:
-    """Reject bad values and conflicting or not-yet-ported flags, before
-    any weights load (the JAX serve CLI's checks, in its order)."""
+    """Reject bad values and conflicting flags, before any weights load
+    (the JAX serve CLI's checks, in its order)."""
     if not 0 <= args.port <= 65535:
         raise SetupError(f"Error: --port must be in 0-65535, got {args.port}")
     if args.image_size is not None and args.image_size <= 0:
@@ -168,10 +172,18 @@ def _check_flags(args) -> None:
     if args.batch_buckets and not args.model_path:
         raise SetupError("Error: --batch_buckets requires a checkpoint (-p); "
                          "an artifact is served at one batch shape.")
-    if args.num_devices not in (None, 1):
-        raise SetupError(f"Error: --num_devices {args.num_devices}: this "
-                         "package serves on one device only so far.")
+    from crosstalk_tpu_torch.device import resolve_device
+    from crosstalk_tpu_torch.parallel.mesh import visible_devices
+
+    visible = visible_devices(resolve_device(args.device).type)  # raises without CUDA
+    n_dev = 1 if args.num_devices is None else args.num_devices
+    if n_dev <= 0 or n_dev > visible:
+        raise SetupError(f"Error: --num_devices {n_dev} requested but only "
+                         f"{visible} device(s) are visible.")
     if args.artifact:
+        if n_dev > 1:
+            raise SetupError("Error: --num_devices > 1 requires a checkpoint (-p); "
+                             "AOT artifacts are traced for one device.")
         if args.transport_dtype != "float32":
             raise SetupError("Error: --transport_dtype float16 requires a "
                              "checkpoint (-p); AOT artifacts are exported "
@@ -249,9 +261,12 @@ def _checkpoint_predictor(args, buckets):
         load_pth,
         model_config_for_checkpoint,
     )
+    from crosstalk_tpu_torch.parallel.mesh import data_mesh
     from crosstalk_tpu_torch.serve.predictor import make_predictor
 
     device = resolve_device(args.device)  # raises when CUDA is missing
+    n_dev = args.num_devices or 1
+    devices = data_mesh(n_dev, device.type)
     variant = args.model_options
 
     print("--- Loading model weights ---")
@@ -290,7 +305,7 @@ def _checkpoint_predictor(args, buckets):
         image_size = args.image_size
 
     name = device_label(device)
-    print(f"Using device: {name} x1")
+    print(f"Using device: {name} x{n_dev}")
     calib_batch = None
 
     def calibrate(sd):
@@ -310,6 +325,10 @@ def _checkpoint_predictor(args, buckets):
 
     batch_size = args.batch_size
     serve_sizes = (buckets or []) + [batch_size]
+    for b in serve_sizes:
+        if b % n_dev:
+            raise SetupError(f"Error: serving batch size {b} must divide across "
+                             f"the {n_dev} replicas (--num_devices).")
     path = ("f32-parity" if args.parity else "int8-serving" if args.quantize
             else "bf16-serving")
     shapes = f"batch {batch_size}" + (f" + buckets {buckets}" if buckets else "")
@@ -319,7 +338,7 @@ def _checkpoint_predictor(args, buckets):
         return make_predictor(
             sd, model_cfg, serve_sizes, image_size=image_size,
             fast=not args.parity, input_dtype=np.dtype(args.transport_dtype),
-            device=args.device, int8_scales=int8_scales,
+            device=args.device, int8_scales=int8_scales, devices=devices,
         )
 
     predict = predictor(state_dict, scales)
@@ -330,7 +349,7 @@ def _checkpoint_predictor(args, buckets):
         "image_size": image_size,
         "path": path,
         "batch_size": batch_size,
-        "devices": 1,
+        "devices": n_dev,
         "device": name,
         "transport_dtype": args.transport_dtype,
     }

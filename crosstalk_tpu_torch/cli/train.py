@@ -13,16 +13,25 @@ reads.
     python -m crosstalk_tpu_torch.cli.train -m MIXED -s SOURCE [-b 256 -n 50 ...]
 
 Runs on the CUDA card (``--device cpu`` to run on the CPU explicitly).
-The data-parallel and multi-host flags (``--num_devices`` > 1,
-``--multihost``, ``--coordinator_address``, ``--num_processes``,
-``--process_id``), ``--profile`` and ``--debug_nans`` are not ported yet
-and are rejected.
+
+Data parallel: ``--num_devices N`` (default: every visible card; 1 with
+``--device cpu``) starts N ranks on this host, one process per device, on
+a free localhost port (``parallel.distributed.launch_local``).
+``--multihost`` with ``--coordinator_address``, ``--num_processes`` and
+``--process_id`` (or the ``CROSSTALK_*`` variables) makes this process one
+rank of a cluster instead; there each process drives one device, so
+``--num_devices``, when given, must equal ``--num_processes`` (the JAX
+package runs one process per host over all its chips). Ranks use NCCL on
+cards and Gloo on the CPU. Rank 0 owns stdout and the artifacts.
+``--profile DIR`` writes a ``torch.profiler`` trace of training;
+``--debug_nans`` fails on the first NaN or Inf (utils/profiling.py).
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import io
 import os
 import re
 import sys
@@ -79,11 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", type=str, default=None,
                         help="Existing training_run_* directory to resume from")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Data-parallel device count (only 1 so far)")
+                        help="Data-parallel device count: one rank per "
+                             "device (default: every visible card; 1 with "
+                             "--device cpu)")
     parser.add_argument("--seed", type=int, default=43,
                         help="Split/init/augmentation seed (reference: 43)")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
-                        help="Not available in this package yet")
+                        help="Write a torch.profiler trace of training to DIR")
     parser.add_argument("--checkpoint_every", type=int, default=1,
                         help="Resume-checkpoint cadence in epochs "
                              "(the final epoch always checkpoints)")
@@ -94,51 +105,123 @@ def build_parser() -> argparse.ArgumentParser:
                              "activation memory drops while the optimizer "
                              "sees the full-batch mean gradient. Per-"
                              "microbatch BatchNorm stats; the batch size "
-                             "must divide by N")
+                             "must divide by N (and by N x ranks)")
     parser.add_argument("--data_placement", type=str, default="auto",
                         choices=["auto", "host", "device"],
                         help="'device' keeps the splits resident on the card "
-                             "(one upload, no per-step host-to-device copy); "
-                             "'host' streams batches from host memory; "
-                             "'auto' picks device on a CUDA card when all "
-                             "three splits take at most a quarter of its "
-                             "free memory, else host")
+                             "(one upload, no per-step host-to-device copy; "
+                             "one rank only); 'host' streams batches from "
+                             "host memory; 'auto' picks device on a single "
+                             "CUDA card when all three splits take at most a "
+                             "quarter of its free memory, else host")
     parser.add_argument("--cache_dir", type=str, default=None,
                         help="Directory for the packed decoded-tile cache "
                              "(memory-mapped; repeat runs skip TIFF decode)")
     parser.add_argument("--debug_nans", action="store_true",
-                        help="Not available in this package yet")
+                        help="Fail fast on NaN/Inf: autograd anomaly mode and "
+                             "a finite check of every module's output (note: "
+                             "a genuinely constant tile yields NaN "
+                             "correlation metrics by reference semantics and "
+                             "will trip this during post-training eval)")
+    # Multi-host: one process per device. Nothing on a GPU host detects the
+    # cluster, so all three come from the flags or the CROSSTALK_COORDINATOR /
+    # CROSSTALK_NUM_PROCESSES / CROSSTALK_PROCESS_ID variables.
     parser.add_argument("--multihost", action="store_true",
-                        help="Not available in this package yet")
+                        help="Join a multi-process cluster as one rank "
+                             "(torch.distributed)")
     parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="Not available in this package yet")
+                        help="host:port where rank 0 listens")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="Not available in this package yet")
+                        help="Total process (rank) count")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="Not available in this package yet")
+                        help="This process's rank")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="Run on the CUDA card (default) or the CPU")
     return parser
 
 
-def _unported_flag(args) -> str:
-    """The first given flag whose slice has not landed, or ''."""
-    if args.num_devices not in (None, 1):
-        return (f"--num_devices {args.num_devices}: this package trains on "
-                "one device only so far")
-    for flag, value in (("--multihost", args.multihost),
-                        ("--coordinator_address", args.coordinator_address),
-                        ("--num_processes", args.num_processes),
-                        ("--process_id", args.process_id)):
-        if value is not None and value is not False:
-            return f"{flag}: multi-host training is not available in this package yet"
-    for flag, value in (("--debug_nans", args.debug_nans),
-                        ("--profile", args.profile)):
-        if value:
-            return (f"{flag} is not available in this package yet "
-                    "(utils/profiling.py is not ported)")
-    return ""
+def _parallel_layout(args):
+    """-> (world size, whether this process is one rank of a --multihost
+    cluster), or an error message. Checked before anything is written."""
+    from crosstalk_tpu_torch.device import resolve_device
+    from crosstalk_tpu_torch.parallel.distributed import cluster_spec
+    from crosstalk_tpu_torch.parallel.mesh import visible_devices
+
+    device = resolve_device(args.device)  # raises when CUDA is missing
+    multihost = bool(args.multihost or args.coordinator_address
+                     or os.environ.get("CROSSTALK_COORDINATOR"))
+    if multihost:
+        try:
+            _, world, _ = cluster_spec(args.coordinator_address, args.num_processes,
+                                       args.process_id)
+        except ValueError as e:
+            return f"Error: --multihost: {e}."
+        if args.num_devices is not None and args.num_devices != world:
+            return (f"Error: --num_devices {args.num_devices} must equal "
+                    f"--num_processes {world} under --multihost (each process "
+                    "drives one device).")
+    else:
+        visible = visible_devices(device.type)
+        world = args.num_devices
+        if world is None:
+            world = visible if device.type == "cuda" else 1
+        if world <= 0 or world > visible:
+            return (f"Error: --num_devices {world} requested but only "
+                    f"{visible} device(s) are visible.")
+    if world > 1:
+        if args.data_placement == "device":
+            return ("Error: --data_placement device is single-device only "
+                    "(each rank streams its own rows).")
+        per_rank = max((args.batch_size // world) * world, world) // world
+        if per_rank % args.grad_accum:
+            return (f"Error: per-device batch {per_rank} must divide by "
+                    f"--grad_accum {args.grad_accum}")
+    return world, multihost
+
+
+class _NonPrimaryStdout(io.TextIOBase):
+    """stdout of ranks other than 0: rank 0 owns it. Error and Warning
+    lines still surface on stderr, tagged with the rank, so a failing rank
+    does not leave the cluster hanging without a word. TextIOBase supplies
+    the rest of the file API for libraries that probe the stream."""
+
+    def __init__(self, rank):
+        super().__init__()
+        self._rank = rank
+
+    def writable(self):
+        return True
+
+    def write(self, s):
+        if "Error" in s or "Warning" in s:
+            sys.stderr.write(f"[rank {self._rank}] {s}")
+        return len(s)
+
+
+def _rank_main(args) -> int:
+    """One rank: join the cluster (from the flags or the CROSSTALK_*
+    variables ``launch_local`` sets), drive this rank's device, train."""
+    import torch
+    import torch.distributed as dist
+
+    from crosstalk_tpu_torch.parallel.distributed import initialize, rank, rank_device
+
+    group = initialize(args.coordinator_address, args.num_processes, args.process_id,
+                       device_type=args.device)
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:  # the host's cores, shared by its ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // dist.get_world_size()))
+    stdout = sys.stdout
+    if rank() != 0:
+        sys.stdout = _NonPrimaryStdout(rank())
+    try:
+        return _train(args, device, group)
+    finally:
+        sys.stdout = stdout
+        dist.destroy_process_group()
 
 
 def placement_budget(device) -> int:
@@ -167,33 +250,51 @@ def main(argv=None) -> int:
         if value <= 0:
             print(f"Error: {name} must be positive, got {value}")
             return 1
-    unported = _unported_flag(args)
-    if unported:
-        print(f"Error: {unported}.")
+    layout = _parallel_layout(args)
+    if isinstance(layout, str):
+        print(layout)
         return 1
+    world, multihost = layout
+    if multihost:
+        return _rank_main(args)
+    if world > 1:
+        from crosstalk_tpu_torch.parallel.distributed import launch_local
 
+        return launch_local(_rank_main, world, args)
+    from crosstalk_tpu_torch.device import resolve_device
+
+    return _train(args, resolve_device(args.device), None)
+
+
+def _train(args, device, group) -> int:
+    """The run on ``device``: one process, or one rank of ``group``."""
     import torch
+    import torch.distributed as dist
 
     from crosstalk_tpu_torch.config import ModelConfig, OptimConfig, TrainConfig
     from crosstalk_tpu_torch.data.index import PairIndex, split_samples
     from crosstalk_tpu_torch.data.pipeline import DeviceDataset, TileStore
-    from crosstalk_tpu_torch.device import (
-        device_label,
-        resolve_device,
-        set_parity_numerics,
-    )
+    from crosstalk_tpu_torch.device import device_label, set_parity_numerics
     from crosstalk_tpu_torch.io import artifacts
     from crosstalk_tpu_torch.models.registry import (
         build_model,
         init_model,
         torch_style_repr,
     )
+    from crosstalk_tpu_torch.parallel.distributed import allgather_to_host
     from crosstalk_tpu_torch.train.loop import finish_training_run, train_model
     from crosstalk_tpu_torch.train.steps import init_train_state
+    from crosstalk_tpu_torch.utils.profiling import enable_debug_checks, maybe_trace
 
-    device = resolve_device(args.device)  # raises when CUDA is missing
+    if args.debug_nans:
+        enable_debug_checks()
     set_parity_numerics()
-    print(f"Using device: {device_label(device)} x1")
+    world = dist.get_world_size(group) if group is not None else 1
+    rank = dist.get_rank(group) if group is not None else 0
+    primary = rank == 0
+    multirank = world > 1
+    print(f"Using device: {device_label(device)} x{world}"
+          + (f", {world} processes" if multirank else ""))
 
     if args.resume:
         # A resumed run continues the SAME run: the hyperparameters that
@@ -201,7 +302,10 @@ def main(argv=None) -> int:
         # params.txt, not this invocation's flags/defaults. -n stays from the
         # invocation: it is the (extendable) total-epoch target.
         original = artifacts.read_params_txt(args.resume)
-        if not glob.glob(os.path.join(args.resume, "checkpoints", "*")):
+        # one rank: fail cleanly up front when there is nothing to restore.
+        # Several ranks skip this (a rank returning early would leave the
+        # others in the digest all-gather below, which owns that failure)
+        if not multirank and not glob.glob(os.path.join(args.resume, "checkpoints", "*")):
             print(f"Error: no checkpoints under {args.resume}/checkpoints — "
                   "nothing to resume (wrong directory, cleaned checkpoints, "
                   "or a partial copy). Start a fresh run instead.")
@@ -226,6 +330,27 @@ def main(argv=None) -> int:
         if adopted:
             print("Resume: adopting the original run's hyperparameters: "
                   + ", ".join(adopted))
+        if multirank:
+            # every rank must see the same --resume directory (params.txt
+            # and checkpoint files): on a filesystem not shared by every
+            # host the ranks would adopt different hyperparameters and
+            # restore different states. train/loop.py's (epoch, step)
+            # all-gather catches checkpoint CONTENT the names cannot reveal.
+            import hashlib
+
+            import numpy as np
+
+            ckpt_files = sorted(os.path.basename(p) for p in glob.glob(
+                os.path.join(args.resume, "checkpoints", "*")))
+            src = repr(sorted(original.items())) + repr(ckpt_files)
+            digest = int.from_bytes(hashlib.sha256(src.encode()).digest()[:7], "little")
+            agreed = allgather_to_host(np.array([digest], np.int64), group)
+            if not (agreed == agreed[0]).all():
+                print("Error: multi-host resume desync — the ranks see "
+                      "different --resume directory contents "
+                      "(params.txt/checkpoints). The run directory must be "
+                      "on a filesystem shared by every host.")
+                return 1
 
     if not (abs(args.train_ratio + args.val_ratio) < 1.0):
         print("Warning: Sum of TRAIN_RATIO, VAL_RATIO, TEST_RATIO does not equal 1.0.")
@@ -259,19 +384,22 @@ def main(argv=None) -> int:
         m = re.search(r"training_run_(.*)_B\d+_LR", run_dir)
         ts = m.group(1) if m else artifacts.timestamp()
         print(f"Resuming run in: {run_dir}")
-    else:
+    elif primary:
         ts = artifacts.timestamp()
         run_dir = artifacts.make_training_run_dir(
             args.output_base, ts, args.batch_size, args.learning_rate
         )
+    else:  # the other ranks never create or write the run dir
+        ts = artifacts.timestamp()
+        run_dir = os.path.join(args.output_base, f"training_run_rank{rank}")
     print(f"Saving all outputs to: {run_dir}")
 
     # on resume, params.txt is the ORIGINAL run's record: keep it and log
     # the resume invocation separately
-    if args.resume:
+    if primary and args.resume:
         artifacts.write_params_txt(run_dir, vars(args), filename="params_resume.txt")
         print(f"Resume parameters saved to {run_dir}/params_resume.txt")
-    else:
+    elif primary:
         artifacts.write_params_txt(run_dir, vars(args))
         print(f"Parameters saved to {run_dir}/params.txt")
 
@@ -281,7 +409,7 @@ def main(argv=None) -> int:
     # an equivalent 100-pair sample set there once (data/synthetic.py).
     if (args.mixed_channel_data_dir == "./Training_Data/Mixed"
             and args.pure_source_data_dir == "./Training_Data/Source"
-            and not os.path.isdir(args.mixed_channel_data_dir)):
+            and not os.path.isdir(args.mixed_channel_data_dir) and not multirank):
         from crosstalk_tpu_torch.data.synthetic import generate_dataset
 
         print("\nDefault data directory ./Training_Data is missing — "
@@ -309,15 +437,21 @@ def main(argv=None) -> int:
         f"Validation = {len(val_samples)}, Test = {len(test_samples)}"
     )
 
+    # the batch stays positive and a multiple of the ranks (-b 4 over 8
+    # ranks becomes 8, not 0); each rank steps on batch / ranks rows
     batch_size = args.batch_size
     if batch_size > len(train_samples):
-        batch_size = max(len(train_samples), 1)
+        batch_size = max((len(train_samples) // world) * world, world)
         print(
             f"Warning: batch size {args.batch_size} exceeds the training split "
             f"({len(train_samples)} samples); clamping to {batch_size}."
         )
-    if batch_size % args.grad_accum != 0:
-        print(f"Error: per-device batch {batch_size} must divide by "
+    if batch_size % world != 0:
+        batch_size = max((batch_size // world) * world, world)
+        print(f"Warning: batch size rounded to {batch_size} "
+              f"(must divide across {world} devices).")
+    if (batch_size // world) % args.grad_accum != 0:
+        print(f"Error: per-device batch {batch_size // world} must divide by "
               f"--grad_accum {args.grad_accum}")
         return 1
 
@@ -344,25 +478,31 @@ def main(argv=None) -> int:
 
     image_size = int(stores["train"].tiles.shape[1])  # size the head from data
 
-    def model_for(state_dict=None):
+    def model_for(state_dict=None, process_group=None):
         # initialized on the CPU from the seed, so a run's initial weights
-        # are the same on every device
-        model = build_model(model_cfg, image_size=image_size)
+        # are the same on every device and every rank
+        model = build_model(model_cfg, image_size=image_size,
+                            process_group=process_group)
         if state_dict is None:
             init_model(model, torch.Generator().manual_seed(args.seed))
         else:
             model.load_state_dict(state_dict)
         return model.to(device)
 
-    artifacts.write_architecture_txt(
-        run_dir, torch_style_repr(model_cfg, image_size=image_size))
-    print(f"Model architecture summary saved to {run_dir}/model_architecture.txt")
-    state = init_train_state(model_for(), optim_cfg)
+    if primary:
+        artifacts.write_architecture_txt(
+            run_dir, torch_style_repr(model_cfg, image_size=image_size))
+        print(f"Model architecture summary saved to {run_dir}/model_architecture.txt")
+    # cross-replica BatchNorm over several ranks; one rank keeps torch's own
+    state = init_train_state(model_for(process_group=group if multirank else None),
+                             optim_cfg)
 
     # the test split counts too: the post-training evaluation uploads it
     # while the train and val copies are still resident
     split_bytes = sum(DeviceDataset.nbytes(s) for s in stores.values())
-    if args.data_placement == "auto":
+    if args.data_placement == "auto" and multirank:
+        device_data = False  # each rank streams its own rows
+    elif args.data_placement == "auto":
         budget = placement_budget(device)
         device_data = split_bytes <= budget
         print(f"Data placement auto: splits {split_bytes / 2**30:.3f} GiB, budget "
@@ -376,16 +516,22 @@ def main(argv=None) -> int:
         device_datasets = {s: DeviceDataset(stores[s], device) for s in ("train", "val")}
 
     print("\nStarting training with validation...")
-    state, train_losses, val_losses = train_model(
-        state, stores["train"], stores["val"], optim_cfg, train_cfg,
-        run_dir, ts, compute_dtype=args.compute_dtype, seed=args.seed,
-        resume=bool(args.resume), naming_batch_size=args.batch_size,
-        device_data=(
-            (device_datasets["train"], device_datasets["val"])
-            if device_data else None
-        ),
-    )
+    with maybe_trace(args.profile):
+        state, train_losses, val_losses = train_model(
+            state, stores["train"], stores["val"], optim_cfg, train_cfg,
+            run_dir, ts, compute_dtype=args.compute_dtype, seed=args.seed,
+            resume=bool(args.resume), naming_batch_size=args.batch_size,
+            device_data=(
+                (device_datasets["train"], device_datasets["val"])
+                if device_data else None
+            ),
+            process_group=group,
+        )
     print("Training finished!")
+    if not primary:
+        # the final artifacts and the post-training evaluation (one
+        # device, no collectives) belong to rank 0
+        return 0
 
     def store_for(split):
         if device_data:

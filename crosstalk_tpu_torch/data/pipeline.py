@@ -161,6 +161,7 @@ def iterate_batches(
     seed: int = 0,
     epoch: int = 0,
     assembly_threads: int = 4,
+    assemble_rows: Optional[slice] = None,
 ) -> Iterator[Batch]:
     """Yield host batches from a TileStore.
 
@@ -168,18 +169,27 @@ def iterate_batches(
     unless ``drop_last``. Rows are copied in sorted-source order (sequential
     walks of a memory-mapped cache) by ``assembly_threads`` threads; the
     output is the same as a plain row loop.
+
+    ``assemble_rows`` (a rank's ``parallel.process_row_slice``): each batch
+    holds only that row range of the global batch (inputs, labels, ids and
+    mask), so a rank copies and uploads only its own rows. The JAX package
+    keeps full-size host buffers with the other rows zeroed and assembles a
+    global array; here each rank steps on its rows alone.
     """
     pool = (
         cf.ThreadPoolExecutor(assembly_threads)
         if assembly_threads > 1 else None
     )
+    rows = slice(None) if assemble_rows is None else assemble_rows
     try:
         for idx, real in _epoch_index_batches(
             len(store), batch_size, shuffle, drop_last, seed, epoch
         ):
-            inputs = np.empty((batch_size, *store.tiles.shape[1:]), np.float32)
-            dst = np.arange(batch_size)
-            src_sorted = dst[np.argsort(idx, kind="stable")]
+            mask = np.zeros(batch_size, dtype=np.float32)
+            mask[:real] = 1.0
+            idx, mask = idx[rows], mask[rows]
+            inputs = np.empty((len(idx), *store.tiles.shape[1:]), np.float32)
+            src_sorted = np.argsort(idx, kind="stable")
 
             def copy_rows(dsts):
                 for j in dsts:
@@ -190,8 +200,6 @@ def iterate_batches(
             else:
                 chunks = np.array_split(src_sorted, assembly_threads)
                 list(pool.map(copy_rows, chunks))
-            mask = np.zeros(batch_size, dtype=np.float32)
-            mask[:real] = 1.0
             yield Batch(inputs, store.labels[idx], store.ids[idx], mask)
     finally:
         if pool is not None:

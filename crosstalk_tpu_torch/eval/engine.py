@@ -5,6 +5,14 @@ the five classical metrics; the host only formats CSV rows. Every sample is
 evaluated through pad-and-mask: the last batch is padded with index-0 rows,
 whose metric values are zeroed so they are visibly not samples, and the
 loss divides by the number of real samples.
+
+Data parallel (crosstalk_tpu/eval/engine.py:108-156): with a process group
+each rank evaluates its row slice of every padded batch and the outputs,
+masks, labels and ids are all-gathered, so every rank builds the same rows
+(rank 0 writes them). With a replica set the forward is
+``parallel.replicated_forward`` and ``replicas`` says how many blocks it
+splits a batch into. Either way the batch is rounded to a multiple of the
+device count.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from crosstalk_tpu_torch.data.pipeline import (
@@ -26,6 +35,13 @@ from crosstalk_tpu_torch.data.pipeline import (
 from crosstalk_tpu_torch.data.transforms import normalize_batch_nhwc
 from crosstalk_tpu_torch.io import artifacts
 from crosstalk_tpu_torch.ops.metrics import classical_metrics
+from crosstalk_tpu_torch.parallel.distributed import (
+    allgather_to_host,
+    is_primary,
+    process_row_slice,
+    world_size,
+)
+from crosstalk_tpu_torch.utils.profiling import check_finite
 
 _METRICS = artifacts.EVAL_FIELDNAMES[3:]
 
@@ -43,6 +59,7 @@ def _eval_step(forward: Callable, inputs, labels, mask, with_metrics: bool = Tru
             k: torch.where(mask > 0, v, torch.zeros_like(v))
             for k, v in classical_metrics(batch).items()
         })
+    check_finite("the eval step's outputs", out)  # --debug_nans
     return out
 
 
@@ -77,6 +94,8 @@ def evaluate(
     batch_size: int = 64,
     desc: Optional[str] = None,
     with_metrics: bool = True,
+    process_group: Optional[dist.ProcessGroup] = None,
+    replicas: int = 1,
 ) -> Tuple[List[Dict], float]:
     """-> (per-sample rows in dataset order, mean MSE loss).
 
@@ -85,22 +104,42 @@ def evaluate(
     schema (test-cross-talk-model.py:39-41) when ``with_metrics``, else the
     2-column train-side schema (train_model.py:68), with float32 values as
     the reference's CSVs print them. ``store`` may be a ``DeviceDataset``
-    (batches gathered on the device)."""
+    (batches gathered on the device; one device only).
+
+    ``process_group``: this process is one rank of it and evaluates its
+    rows of each batch; every rank returns the same rows and loss.
+    ``replicas``: the number of row blocks ``forward`` splits a batch into
+    (``parallel.replicated_forward``). The batch is rounded to a multiple
+    of ranks x replicas."""
     rows: List[Dict] = []
     total_sq_err = 0.0
     total_n = 0
     batch_size = min(batch_size, max(1, len(store)))
+    ranks = world_size(process_group) if process_group is not None else 1
+    multiple = ranks * replicas
+    batch_size = max((batch_size // multiple) * multiple, multiple)
+    assemble = process_row_slice(batch_size, process_group) if ranks > 1 else None
     if isinstance(store, DeviceDataset):
+        if ranks > 1:
+            raise ValueError("DeviceDataset evaluation is single-device; pass a "
+                             "TileStore for rank-sharded evaluation")
         batches = store.batches(batch_size)
     else:
-        batches = device_batches(iterate_batches(store, batch_size), device)
+        batches = device_batches(
+            iterate_batches(store, batch_size, assemble_rows=assemble), device)
     batches = _progress(batches, desc, num_batches(len(store), batch_size))
     for batch in batches:
         out = _eval_step(forward, batch.inputs, batch.labels, batch.mask,
                          with_metrics)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        labels = batch.labels.cpu().numpy()[:, 0]
-        real = int(batch.mask.sum().item())
+        parts = (out, batch.mask, batch.labels, batch.ids)
+        if ranks > 1:  # every rank holds its rows only: gather all, in rank order
+            out, mask, labels, ids = allgather_to_host(parts, process_group)
+        else:
+            out, mask, labels = ({k: v.cpu().numpy() for k, v in out.items()},
+                                 batch.mask.cpu().numpy(), batch.labels.cpu().numpy())
+            ids = batch.ids
+        labels = labels[:, 0]
+        real = int(mask.sum())
         total_sq_err += float(out["sq_err"].sum())
         total_n += real
         for j in range(real):
@@ -109,7 +148,7 @@ def evaluate(
                 "Predicted_Label": np.float32(out["preds"][j]),
             }
             if with_metrics:
-                row = {"Image_ID": int(batch.ids[j]), **row,
+                row = {"Image_ID": int(ids[j]), **row,
                        **{k: np.float32(out[k][j]) for k in _METRICS}}
             rows.append(row)
 
@@ -125,6 +164,8 @@ def evaluate_and_save(
     ts: str,
     batch_size: int = 64,
     train_suffix: Optional[str] = None,
+    process_group: Optional[dist.ProcessGroup] = None,
+    replicas: int = 1,
 ) -> float:
     """Evaluate, write the predictions CSV and its plots.
 
@@ -133,13 +174,17 @@ def evaluate_and_save(
     (test-cross-talk-model.py:92-121). Train side
     (``train_suffix='{ts}_{bs}_{lr}'``): ``{split}_predictions_{suffix}.csv``
     in the 2-column schema and ``{split}_predictions_plot_{suffix}.png``
-    (train_model.py:64-93)."""
+    (train_model.py:64-93). Under ``process_group`` every rank evaluates
+    and rank 0 alone prints and writes."""
     with_metrics = train_suffix is None
+    primary = is_primary(process_group)
     rows, loss = evaluate(
         forward, store, device, batch_size,
-        desc=f"{dataset_name.capitalize()} Set Evaluation",
-        with_metrics=with_metrics,
+        desc=f"{dataset_name.capitalize()} Set Evaluation" if primary else None,
+        with_metrics=with_metrics, process_group=process_group, replicas=replicas,
     )
+    if not primary:
+        return loss
     print(f"Final {dataset_name.capitalize()} Loss: {loss:.6f}")
     suffix = ts if with_metrics else train_suffix
     fieldnames = artifacts.EVAL_FIELDNAMES if with_metrics else artifacts.TRAIN_FIELDNAMES

@@ -134,17 +134,25 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact on both devices.
 
     On the card this is cuBLASLt's s8 x s8 -> s32 GEMM, which takes more
-    than 16 rows and K, N multiples of 8: shorter inputs are padded with
-    zero rows here, and other K, N raise (there is no float fallback)."""
-    if a.is_cuda:
-        k, n = a.shape[1], b.shape[1]
-        if k % 8 or n % 8:
-            raise ValueError(f"the int8 tier on CUDA needs channel counts that are "
-                             f"multiples of 8, got K={k}, N={n}")
-        m = a.shape[0]
-        if m <= _PAD_ROWS:
-            return torch._int_mm(F.pad(a, (0, 0, 0, _PAD_ROWS + 1 - m)), b)[:m]
-    return torch._int_mm(a, b)
+    than 16 rows and K, N multiples of 8. So K (the columns of ``a`` and the
+    rows of ``b``) and N (the columns of ``b``, sliced off the product) are
+    zero-padded to multiples of 8 on every device, which adds exact zeros
+    to the int32 sums, as the JAX int8 conv and dense take any width
+    (crosstalk_tpu/eval/int8_forward.py:107-114, :136-141); on the card, 16
+    rows or fewer are padded with zero rows. ``b`` keeps its memory order
+    (the weights are stored column-major)."""
+    m, k = a.shape
+    n = b.shape[1]
+    pad_k, pad_n = -k % 8, -n % 8
+    if pad_k:
+        a = F.pad(a, (0, pad_k))
+    if pad_k or pad_n:
+        b = F.pad(b.t(), (0, pad_k, 0, pad_n)).t()
+    if a.is_cuda and m <= _PAD_ROWS:
+        out = torch._int_mm(F.pad(a, (0, 0, 0, _PAD_ROWS + 1 - m)), b)[:m]
+    else:
+        out = torch._int_mm(a, b)
+    return out[:, :n] if pad_n else out
 
 
 def _conv3x3_int8(xq: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

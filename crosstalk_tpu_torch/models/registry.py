@@ -13,17 +13,22 @@ from crosstalk_tpu_torch.models.single_branch import SingleBranchRegressor
 from crosstalk_tpu_torch.models.two_branch import TwoBranchRegressor
 
 
-def build_model(cfg: ModelConfig, image_size: int = 256, device=None) -> nn.Module:
+def build_model(cfg: ModelConfig, image_size: int = 256, device=None,
+                process_group=None) -> nn.Module:
     """ModelConfig -> eval-mode ``nn.Module`` in the reference key schema.
 
     ``image_size`` sizes the first head Linear, as the reference's dummy
-    forward does. ``device='meta'`` builds the module without storage."""
+    forward does. ``device='meta'`` builds the module without storage.
+    ``process_group`` (the JAX package's ``axis_name``) makes every
+    BatchNorm cross-replica over its ranks in train mode; None (the
+    default) builds plain ``nn.BatchNorm2d``/``1d``."""
     common = dict(
         image_size=image_size,
         leaky_slope=cfg.leaky_slope,
         bn_eps=cfg.bn_eps,
         bn_momentum=cfg.bn_momentum,
         device=device,
+        process_group=process_group,
     )
     if cfg.variant == "double":
         model = TwoBranchRegressor(

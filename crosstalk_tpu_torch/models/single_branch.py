@@ -20,10 +20,10 @@ class SingleBranchRegressor(nn.Module):
                  num_conv_blocks: int = 6, max_filters: int = 512,
                  image_size: int = 256, leaky_slope: float = 0.01,
                  bn_eps: float = 1e-5, bn_momentum: float = 0.1,
-                 dropout: float = 0.1, device=None):
+                 dropout: float = 0.1, device=None, process_group=None):
         super().__init__()
         kw = dict(slope=leaky_slope, eps=bn_eps, momentum=bn_momentum,
-                  device=device)
+                  device=device, process_group=process_group)
         layers = []
         cin, cout = input_channels, initial_filters
         layers += conv_block(cin, cout, **kw)

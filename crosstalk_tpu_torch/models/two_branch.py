@@ -51,10 +51,10 @@ class TwoBranchRegressor(nn.Module):
     def __init__(self, initial_filters_per_branch: int = 64,
                  image_size: int = 256, leaky_slope: float = 0.01,
                  bn_eps: float = 1e-5, bn_momentum: float = 0.1,
-                 dropout: float = 0.5, device=None):
+                 dropout: float = 0.5, device=None, process_group=None):
         super().__init__()
         kw = dict(slope=leaky_slope, eps=bn_eps, momentum=bn_momentum,
-                  device=device)
+                  device=device, process_group=process_group)
         f = initial_filters_per_branch
         self.bleed_branch = FeatureBranch(f, **kw)
         self.source_branch = FeatureBranch(f, **kw)

@@ -15,6 +15,12 @@ Divergences from the reference, shared with the JAX package:
     cloned on the device and a background thread copies and writes it while
     the next epoch trains; everything is durable before ``train_model``
     returns.
+
+Under a process group (crosstalk_tpu/train/loop.py:125-148, :154, :165-187,
+:213-223) every rank runs this loop on its own rows of each batch; the
+losses the steps return are global, so best model, early stop and schedule
+stay in lockstep, while the log, the checkpoints, the plots and the prints
+belong to rank 0.
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from crosstalk_tpu_torch.config import OptimConfig, TrainConfig
 from crosstalk_tpu_torch.data.pipeline import (
@@ -34,6 +42,12 @@ from crosstalk_tpu_torch.data.pipeline import (
 )
 from crosstalk_tpu_torch.eval.engine import _progress
 from crosstalk_tpu_torch.io import artifacts, checkpoint
+from crosstalk_tpu_torch.parallel.distributed import (
+    allgather_to_host,
+    is_primary,
+    process_row_slice,
+    world_size,
+)
 from crosstalk_tpu_torch.train.schedules import Schedule
 from crosstalk_tpu_torch.train.steps import TrainState, make_train_step, make_val_step
 
@@ -51,6 +65,7 @@ def train_model(
     resume: bool = False,
     naming_batch_size: Optional[int] = None,
     device_data: Optional[Tuple[DeviceDataset, DeviceDataset]] = None,
+    process_group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[TrainState, List[float], List[float]]:
     """Run the full training schedule -> (state, train_losses, val_losses).
 
@@ -61,6 +76,11 @@ def train_model(
     ``device_data``, the ``(train, val)`` splits resident on the model's
     device (``DeviceDataset``), replaces the per-step host-to-device copy
     with an on-device gather; the batch sequence is the host path's.
+    Single-device only: with more than one rank each rank streams its rows
+    through the host pipeline.
+
+    ``process_group``: this process is one rank of it (see the module
+    docstring); the model must be on this rank's device.
     """
     batch_size = train_cfg.batch_size
     naming_bs = naming_batch_size if naming_batch_size is not None else batch_size
@@ -78,9 +98,18 @@ def train_model(
     device = next(state.model.parameters()).device
     schedule = Schedule(optim_cfg, train_cfg.num_epochs, steps_per_epoch)
     train_step = make_train_step(state, compute_dtype=compute_dtype, seed=seed,
-                                 grad_accum=train_cfg.grad_accum)
-    val_step = make_val_step(state.model, compute_dtype=compute_dtype)
+                                 grad_accum=train_cfg.grad_accum,
+                                 process_group=process_group)
+    val_step = make_val_step(state.model, compute_dtype=compute_dtype,
+                             process_group=process_group)
+    multirank = process_group is not None and world_size(process_group) > 1
+    primary = is_primary(process_group)
+    # each rank assembles only its rows of every batch
+    assemble = process_row_slice(batch_size, process_group) if multirank else None
 
+    if device_data is not None and multirank:
+        raise ValueError("device_data is single-device only; with more than one "
+                         "rank each rank streams its rows through the host pipeline")
     if device_data is not None:
         train_data, val_data = device_data
 
@@ -94,11 +123,13 @@ def train_model(
         def train_batches(epoch):
             return device_batches(
                 iterate_batches(train_store, batch_size, shuffle=True,
-                                drop_last=True, seed=seed, epoch=epoch),
+                                drop_last=True, seed=seed, epoch=epoch,
+                                assemble_rows=assemble),
                 device)
 
         def val_batches():
-            return device_batches(iterate_batches(val_store, batch_size), device)
+            return device_batches(
+                iterate_batches(val_store, batch_size, assemble_rows=assemble), device)
 
     train_losses: List[float] = []
     val_losses: List[float] = []
@@ -112,6 +143,20 @@ def train_model(
         # moments to the parameters' device and keeps Adam's step counts on
         # the host, where the non-capturable Adam reads them without a sync
         restored = checkpoint.load_checkpoint(run_dir)
+        if multirank:
+            # rank 0 writes the checkpoints and every rank reads them from
+            # its own run_dir: ranks that see different checkpoints (a
+            # filesystem not shared by every host, a partial copy) would
+            # restore different states, so they stop here, all of them
+            local = np.array([[restored[1]["epoch"], restored[1]["global_step"]]
+                              if restored is not None else [-1, -1]], np.int64)
+            agreed = allgather_to_host(local, process_group)
+            if not (agreed == agreed[0]).all():
+                raise RuntimeError(
+                    "multi-host resume desync: per-rank (epoch, step) = "
+                    f"{agreed.tolist()} — the --resume run directory must "
+                    "be on a filesystem shared by every host"
+                )
         if restored is None:
             # a --resume with nothing restorable must not fall through to a
             # fresh run: TrainingLog(resume_from_epoch=0) would truncate the
@@ -131,14 +176,15 @@ def train_model(
         val_losses = list(meta["val_losses"])
         lr_history = list(meta["lr_history"])
         schedule.load_state_dict(meta["schedule"])
-        print(f"Resumed from epoch {start_epoch} (best val {best_val_loss:.6f})")
+        if primary:
+            print(f"Resumed from epoch {start_epoch} (best val {best_val_loss:.6f})")
 
     log = artifacts.TrainingLog(
         run_dir, ts, naming_bs, optim_cfg.learning_rate,
         schedule.scheduler_type, schedule.params_dict,
         resume_from_epoch=start_epoch if resume else None,
-    )
-    writer = checkpoint.AsyncCheckpointWriter()
+    ) if primary else artifacts.NullTrainingLog()
+    writer = checkpoint.AsyncCheckpointWriter() if primary else None
     try:
         for epoch in range(start_epoch, train_cfg.num_epochs):
             lr_history.append(schedule.lr_for_step(state.step))
@@ -148,7 +194,7 @@ def train_model(
             step_losses = []
             for batch in _progress(
                 train_batches(epoch),
-                f"Epoch {epoch + 1}/{train_cfg.num_epochs} [Train]",
+                f"Epoch {epoch + 1}/{train_cfg.num_epochs} [Train]" if primary else None,
                 steps_per_epoch,
             ):
                 lr = schedule.lr_for_step(state.step)
@@ -161,7 +207,7 @@ def train_model(
             sq_sum = count = 0.0
             for batch in _progress(
                 val_batches(),
-                f"Epoch {epoch + 1}/{train_cfg.num_epochs} [Val]",
+                f"Epoch {epoch + 1}/{train_cfg.num_epochs} [Val]" if primary else None,
                 num_batches(len(val_store), batch_size),
             ):
                 s, c = val_step(batch.inputs, batch.labels, batch.mask)
@@ -175,27 +221,29 @@ def train_model(
             if val_loss < best_val_loss:
                 best_val_loss = val_loss
                 epochs_without_improvement = 0
-                writer.submit_pth(
-                    f"{run_dir}/best_model_{schedule.scheduler_type}.pth",
-                    state.model.state_dict(),
-                )
+                if primary:
+                    writer.submit_pth(
+                        f"{run_dir}/best_model_{schedule.scheduler_type}.pth",
+                        state.model.state_dict(),
+                    )
             else:
                 epochs_without_improvement += 1
 
             current_lr = schedule.lr_for_step(state.step)
-            print(
-                f"Epoch [{epoch + 1}/{train_cfg.num_epochs}] | "
-                f"Train Loss: {train_loss:.6f} | Val Loss: {val_loss:.6f} | "
-                f"LR: {current_lr:.2e} | {tiles_per_sec:,.0f} tiles/s"
-            )
+            if primary:
+                print(
+                    f"Epoch [{epoch + 1}/{train_cfg.num_epochs}] | "
+                    f"Train Loss: {train_loss:.6f} | Val Loss: {val_loss:.6f} | "
+                    f"LR: {current_lr:.2e} | {tiles_per_sec:,.0f} tiles/s"
+                )
             log.log_epoch(epoch + 1, train_loss, val_loss, current_lr)
 
             # ---- resume checkpoint: every checkpoint_every epochs, on the
             #      last epoch, and on an early stop (which makes this epoch
             #      the last one)
             stopping = epochs_without_improvement >= schedule.early_stop_patience
-            if ((epoch + 1) % train_cfg.checkpoint_every == 0
-                    or epoch + 1 == train_cfg.num_epochs or stopping):
+            if primary and ((epoch + 1) % train_cfg.checkpoint_every == 0
+                            or epoch + 1 == train_cfg.num_epochs or stopping):
                 writer.submit_checkpoint(
                     run_dir,
                     checkpoint.state_payload(state, seed),
@@ -212,17 +260,19 @@ def train_model(
                 )
 
             if stopping:
-                print(
-                    f"Early stopping triggered after {epoch + 1} epochs "
-                    f"(no improvement for {schedule.early_stop_patience} epochs)"
-                )
+                if primary:
+                    print(
+                        f"Early stopping triggered after {epoch + 1} epochs "
+                        f"(no improvement for {schedule.early_stop_patience} epochs)"
+                    )
                 break
     finally:
         # every submitted write durable (and any writer error raised) before
         # the caller reloads or evaluates artifacts
-        writer.close()
+        if writer is not None:
+            writer.close()
         log.close()
-    if artifacts.plot_lr_schedule(run_dir, lr_history, schedule.scheduler_type):
+    if primary and artifacts.plot_lr_schedule(run_dir, lr_history, schedule.scheduler_type):
         print(f"Learning rate schedule plot saved to "
               f"{run_dir}/lr_schedule_{schedule.scheduler_type}.png")
     return state, train_losses, val_losses

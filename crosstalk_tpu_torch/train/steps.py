@@ -16,14 +16,31 @@ Random draws are stateless functions of (seed, global step): the flips of
 ``data/transforms.py`` and the dropout masks of ``models/layers.SeededDropout``,
 whose generator is re-seeded per (seed, step, microbatch). A resumed run
 therefore draws what the uninterrupted run drew.
+
+Data parallelism (crosstalk_tpu/train/steps.py:102-118, :157-159, :172-174,
+:206-208): with a ``process_group`` each rank steps on its own rows of the
+global batch. ``DistributedDataParallel`` takes the mean of the gradients
+over the ranks (the JAX package's ``pmean``), the loss is all-reduced to its
+mean, the BatchNorms are cross-replica when the model was built with the
+group (``models.registry.build_model(process_group=...)``), and the
+validation sums are all-reduced. The flips draw from each example's global
+index (rank x local batch + its row), so they equal the single-device
+flips; dropout masks are whole-activation draws that depend on the shard's
+shape, so each rank folds its rank into the dropout seed (the JAX package
+folds in ``axis_index``). With those, N ranks take the step one device
+takes on the concatenated batch, up to the order of floating-point sums
+and the dropout masks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Tuple
+import warnings
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -72,6 +89,7 @@ def make_train_step(
     seed: int = 43,
     augment: bool = True,
     grad_accum: int = 1,
+    process_group: Optional[dist.ProcessGroup] = None,
 ) -> Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]:
     """-> fn(inputs, labels, lr) -> loss (a 0-d device tensor).
 
@@ -85,6 +103,13 @@ def make_train_step(
     by its own BatchNorm batch statistics and the running statistics update
     per microbatch, as in the JAX package's ``lax.scan`` step. Flips stay
     those of the whole batch (each example draws from its global index).
+
+    With ``process_group``, ``inputs`` are this rank's rows of the global
+    batch (``parallel.process_row_slice``), the model is wrapped in
+    ``DistributedDataParallel`` (once: call this once per model), and the
+    returned loss is the mean over the ranks. At one rank the step is
+    bitwise the plain one (the gradient and loss means divide by 1). Build
+    the model with the same group for cross-replica BatchNorm statistics.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -94,6 +119,19 @@ def make_train_step(
     for m in model.modules():
         if isinstance(m, SeededDropout):
             m.generator = gen
+    world, rank, module = 1, 0, model
+    if process_group is not None:
+        from torch.nn.parallel import DistributedDataParallel
+
+        world, rank = dist.get_world_size(process_group), dist.get_rank(process_group)
+        # the running statistics are equal on every rank already (the
+        # cross-replica BatchNorm), so they are not broadcast per forward
+        # (newer torch warns that this flag is renamed)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            module = DistributedDataParallel(
+                model, device_ids=[device] if device.type == "cuda" else None,
+                process_group=process_group, broadcast_buffers=False)
 
     def step_fn(inputs: torch.Tensor, labels: torch.Tensor, lr: float) -> torch.Tensor:
         b = inputs.shape[0]
@@ -108,24 +146,35 @@ def make_train_step(
         for i in range(grad_accum):
             rows = slice(i * micro, (i + 1) * micro)
             batch = prepare_train_batch(inputs[rows], seed, state.step, augment,
-                                        index_offset=i * micro)
-            gen.manual_seed(counter_key(seed, state.step, DROPOUT_STREAM, i))
-            with _autocast(device, compute_dtype):
-                preds = model(batch.permute(0, 3, 1, 2))
-            loss = F.mse_loss(preds.to(labels.dtype), labels[rows])
-            (loss / grad_accum).backward()
+                                        index_offset=rank * b + i * micro)
+            key = (seed, state.step, DROPOUT_STREAM, i) + ((rank,) if world > 1 else ())
+            gen.manual_seed(counter_key(*key))
+            # DDP all-reduces the gradients after the last microbatch only
+            sync = i == grad_accum - 1 or module is model
+            with (contextlib.nullcontext() if sync else module.no_sync()):
+                with _autocast(device, compute_dtype):
+                    preds = module(batch.permute(0, 3, 1, 2))
+                loss = F.mse_loss(preds.to(labels.dtype), labels[rows])
+                (loss / grad_accum).backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         opt.step()
         state.step += 1
-        return loss_sum / grad_accum
+        loss = loss_sum / grad_accum
+        if process_group is not None:
+            dist.all_reduce(loss, group=process_group)
+            loss = loss / world
+        return loss
 
     return step_fn
 
 
-def make_val_step(model: nn.Module, compute_dtype: str = "bf16"):
+def make_val_step(model: nn.Module, compute_dtype: str = "bf16",
+                  process_group: Optional[dist.ProcessGroup] = None):
     """-> fn(inputs, labels, mask) -> (sq_err_sum, count), both 0-d device
-    tensors; padding rows (mask 0) add nothing. Runs the model in eval mode."""
+    tensors; padding rows (mask 0) add nothing. Runs the model in eval mode.
+    With ``process_group`` the inputs are this rank's rows and both sums
+    are over every rank's rows."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -135,6 +184,9 @@ def make_val_step(model: nn.Module, compute_dtype: str = "bf16"):
         with _autocast(device, compute_dtype):
             preds = model(batch.permute(0, 3, 1, 2))
         sq_err = torch.square(preds.to(labels.dtype) - labels)[:, 0] * mask
-        return sq_err.sum(), mask.sum()
+        sums = torch.stack([sq_err.sum(), mask.sum()])
+        if process_group is not None:
+            dist.all_reduce(sums, group=process_group)
+        return sums[0], sums[1]
 
     return step_fn

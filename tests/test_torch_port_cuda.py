@@ -286,11 +286,12 @@ def test_cuda_device_dataset_order_equals_iterate_batches(cuda_device, tmp_path)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,n", [(2, 32, 32, 128, 256), (1, 8, 8, 512, 512),
-                                       (3, 10, 14, 64, 128)])
+                                       (3, 10, 14, 64, 128), (2, 16, 16, 4, 12)])
 def test_cuda_int8_block_matches_cpu_bitwise(cuda_device, b, h, w, c, n):
     """One int8 conv block from the same bf16 input, folded weights and
     clip: cuBLASLt's int32 accumulators and the bf16 block output equal the
-    CPU's bit for bit."""
+    CPU's bit for bit. C_in = 4, N = 12 runs the GEMM with K = 36 and N
+    zero-padded to multiples of 8."""
     from crosstalk_tpu_torch.eval.int8_forward import (
         _conv3x3_int8,
         _quant_act,
@@ -316,17 +317,19 @@ def test_cuda_int8_block_matches_cpu_bitwise(cuda_device, b, h, w, c, n):
 
 @pytest.mark.cuda
 def test_cuda_int8_head_pads_short_batches(cuda_device):
-    """``_int_mm`` on the card takes more than 16 rows: the int8 head pads
-    a batch of 2 and matches the CPU exactly; channel counts that are not
-    multiples of 8 raise rather than fall back to a float product."""
+    """``_int_mm`` on the card takes more than 16 rows, and K and N in
+    multiples of 8: a batch of 2 is padded with zero rows, K = 60 and N = 12
+    with zero columns, and each product equals the CPU's and the exact
+    integer product."""
     from crosstalk_tpu_torch.eval.int8_forward import _int_mm
 
     gen = torch.Generator().manual_seed(0)
     a = torch.randint(-127, 128, (2, 64), generator=gen, dtype=torch.int8)
     b = torch.randint(-127, 128, (32, 64), generator=gen, dtype=torch.int8).t()
-    assert torch.equal(_int_mm(a.cuda(), b.cuda()).cpu(), _int_mm(a, b))
-    with pytest.raises(ValueError, match="multiples of 8"):
-        _int_mm(a[:, :60].contiguous().cuda(), b[:60].cuda())
+    for a_, b_ in ((a, b), (a[:, :60].contiguous(), b[:60]), (a, b[:, :12])):
+        want = (a_.long() @ b_.long()).int()
+        assert torch.equal(_int_mm(a_, b_), want)
+        assert torch.equal(_int_mm(a_.cuda(), b_.cuda()).cpu(), want)
 
 
 @pytest.mark.cuda
@@ -366,8 +369,8 @@ def test_cuda_int8_after_block0_matches_cpu(cuda_device, variant, int8_dense):
     f32 in another order) and within the bf16 fast path's 5e-4 for the bf16
     head (its bf16 casts between the layers round some of those f32
     differences apart: 7.1e-5 measured on an H100). The predictions spread
-    over more than 1e-3. The two-branch model has 8 filters per branch:
-    ``_int_mm`` on the card takes K = 9 * C_in in multiples of 8."""
+    over more than 1e-3. The two-branch model has 4 filters per branch, so
+    its block 1 is a GEMM with K = 9 * 4 = 36, zero-padded to 40."""
     from crosstalk_tpu_torch.data.transforms import normalize_batch_nhwc
     from crosstalk_tpu_torch.eval.fast_forward import make_first_block
     from crosstalk_tpu_torch.eval.int8_forward import (
@@ -376,7 +379,7 @@ def test_cuda_int8_after_block0_matches_cpu(cuda_device, variant, int8_dense):
         make_int8_trunk,
     )
 
-    cfg, sd = _small_checkpoint(variant, per_branch=8)
+    cfg, sd = _small_checkpoint(variant)
     if variant == "double":  # so that its sigmoid outputs spread apart
         key = "regression_head.fc_layers.9.weight"
         sd[key] = sd[key] * 16
@@ -430,3 +433,116 @@ def test_cuda_artifact_exported_and_loaded_on_the_card(cuda_device, tmp_path, ti
     np.testing.assert_allclose(fn(raw), want, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="exported for device type 'cuda'"):
         load_exported(path, device="cpu")
+
+
+# --- data parallel on the card ----------------------------------------------
+
+def _env_for_ranks():
+    import os
+    from pathlib import Path
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1])
+    return env
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_one_rank_step_is_bitwise_the_plain_step(cuda_device):
+    """A one-rank NCCL group (DDP's gradient mean and the loss mean divide
+    by 1): the first step's loss, every gradient and the parameters after
+    it equal the plain step's bit for bit (deterministic cuDNN)."""
+    import torch.distributed as dist
+
+    from crosstalk_tpu_torch.parallel.distributed import free_port, initialize
+    from crosstalk_tpu_torch.train.steps import make_train_step
+
+    group = initialize(f"localhost:{free_port()}", 1, 0, device_type="cuda", timeout_s=60)
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out = {}
+        for name, pg in (("plain", None), ("nccl", group)):
+            state = _small_train_state(cuda_device)
+            step = make_train_step(state, compute_dtype="bf16", seed=5, process_group=pg)
+            raw = torch.from_numpy(_raw_tiles(8, seed=11)).to(cuda_device)
+            y = torch.linspace(0, 0.5, 8, device=cuda_device).view(8, 1)
+            loss = step(raw, y, 1e-3)
+            out[name] = (loss.cpu(), {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                         {k: v.cpu() for k, v in state.model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        dist.destroy_process_group()
+    (l0, g0, s0), (l1, g1, s1) = out["plain"], out["nccl"]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_on_one_card_equal_one_rank(cuda_device, tmp_path):
+    """Two Gloo ranks share the card (NCCL refuses two ranks on one GPU):
+    one f32 step at global batch 8 equals the one-process step on the card:
+    loss rtol 1e-5, gradients 1e-4 x each leaf's max |g| + 1e-7 (the
+    biases a BatchNorm follows left out), statistics 1e-5 of the leaf's
+    largest value, parameters 2 x lr plus two float32 ulps of the leaf's
+    largest value."""
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.parallel.distributed import free_port
+    from crosstalk_tpu_torch.tools.multirank import run_steps
+
+    rng = np.random.default_rng(7)
+    inputs = _raw_tiles(8, seed=12)
+    labels = rng.uniform(0, 0.5, (8, 1)).astype(np.float32)
+    np.savez(tmp_path / "batch.npz", inputs=inputs, labels=labels)
+    lr, port = 1e-5, free_port()
+    argv = ["--world", "2", "--port", str(port), "--out", str(tmp_path), "--data",
+            str(tmp_path / "batch.npz"), "--initial_filters", "8", "--num_conv_blocks", "3",
+            "--dropout", "0", "--lr", str(lr), "--augment", "--device", "cuda:0",
+            "--backend", "gloo"]
+    procs = [subprocess.Popen([sys.executable, "-m", "crosstalk_tpu_torch.tools.multirank",
+                               "step", "--rank", str(r), *argv], env=_env_for_ranks())
+             for r in (0, 1)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    two = torch.load(tmp_path / "rank0.pt", weights_only=False)
+    cfg = ModelConfig(initial_filters=8, num_conv_blocks=3, compute_dtype="f32",
+                      dropout_single=0.0)
+    one = run_steps(cfg, 32, torch.from_numpy(inputs).to(cuda_device),
+                    torch.from_numpy(labels).to(cuda_device), lr, augment=True)
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
+    shadowed = {k for k in one["grads"] if k.endswith(".bias") and
+                f"{k.rsplit('.', 2)[0]}.{int(k.split('.')[-2]) + 1}.running_mean" in one["state"]}
+    for k, g in one["grads"].items():
+        if k in shadowed:
+            continue
+        assert float((two["grads"][k] - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-7, k
+    for k, v in one["state"].items():
+        diff = float((two["state"][k].double() - v.double()).abs().max())
+        if "running" in k:
+            assert diff <= 1e-5 * float(v.abs().max()) + 1e-7, k
+        elif k.endswith(("weight", "bias")):  # + the f32 rounding of p - lr * u
+            assert diff <= 2 * lr + 2.0 ** -22 * float(v.abs().max()), k
+
+
+@pytest.mark.cuda
+def test_cuda_replica_predictor_equals_one_replica(cuda_device):
+    """A [cuda:0, cuda:0] replica set: each replica runs K1, and the batch
+    of 4 equals one replica's two batches of 2 bit for bit, and one
+    replica's batch of 4 within the card's --fast envelope (5e-4)."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.serve.predictor import make_predictor
+
+    cfg, sd = _small_checkpoint("single")
+    one = make_predictor(sd, cfg, (2, 4), image_size=32, device="cuda")
+    before = fused_input_block.launches
+    two = make_predictor(sd, cfg, (2, 4), image_size=32, devices=["cuda:0", "cuda:0"])
+    assert fused_input_block.launches - before == 4  # two buckets x two replicas
+    raw = _raw_tiles(4, seed=3)
+    got = two(raw)
+    np.testing.assert_array_equal(got, np.concatenate([one(raw[:2]), one(raw[2:])]))
+    np.testing.assert_allclose(got, one(raw), rtol=0, atol=5e-4)

@@ -115,10 +115,12 @@ def test_quantization_constants_are_ieee_divisions_as_in_jax():
     assert (127.0 / torch.from_numpy(sx)).numpy().tolist() != want.tolist()
 
 
-@pytest.mark.parametrize("b,h,w,c,n", [(2, 16, 16, 8, 16), (3, 10, 14, 16, 8), (1, 6, 6, 32, 64)])
+@pytest.mark.parametrize("b,h,w,c,n", [(2, 16, 16, 8, 16), (3, 10, 14, 16, 8), (1, 6, 6, 32, 64),
+                                       (2, 8, 8, 4, 12)])
 def test_conv_block_int8_matches_jax_exactly(b, h, w, c, n):
     """From one bf16 input: the int32 accumulators and the bf16 block output
-    are JAX's, bit for bit (negative BN scales included)."""
+    are JAX's, bit for bit (negative BN scales included). C = 4, N = 12 runs
+    the zero-padded GEMM (K = 36 and N to multiples of 8)."""
     rng = np.random.default_rng(b * 100 + c)
     xb = jnp.asarray(rng.normal(0, 1, (b, h, w, c)).astype(np.float32)).astype(jnp.bfloat16)
     kernel = rng.normal(0, 0.3, (3, 3, c, n)).astype(np.float32)

@@ -72,6 +72,15 @@ def test_fresh_process_check_covers_the_int8_and_export_modules():
     } <= names
 
 
+def test_fresh_process_check_covers_the_parallel_and_debug_modules():
+    names = set(_module_names())
+    assert {
+        "crosstalk_tpu_torch.parallel", "crosstalk_tpu_torch.parallel.distributed",
+        "crosstalk_tpu_torch.parallel.mesh", "crosstalk_tpu_torch.utils",
+        "crosstalk_tpu_torch.utils.profiling", "crosstalk_tpu_torch.tools.multirank",
+    } <= names
+
+
 def test_import_loads_no_jax_in_a_fresh_process():
     mods = _module_names() + ["chip_smoke"]
     code = (
@@ -140,14 +149,27 @@ def test_train_cli_without_device_raises_on_a_cudaless_host(monkeypatch, tmp_pat
     assert not list(tmp_path.glob("training_run_*"))
 
 
+def test_multirank_tool_without_device_raises_on_a_cudaless_host(monkeypatch, tmp_path):
+    """The tool's ranks run on the card unless ``--device cpu`` is given:
+    it raises before it joins a process group or writes anything."""
+    from crosstalk_tpu_torch.tools.multirank import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["step", "--rank", "0", "--world", "1", "--port", "1", "--out", str(tmp_path)])
+    assert list(tmp_path.iterdir()) == []
+
+
 @pytest.mark.parametrize("flags", [
-    ["--num_devices", "2"],
-    ["--debug_nans"],
-    ["--profile", "trace"],
+    ["--num_devices", "0"],
+    ["--num_devices", "-2"],
+    ["--num_devices", "100000"],
     ["--batch_size", "0"],
     ["-o", "double", "--num_conv_blocks", "4"],
 ])
 def test_eval_cli_rejects_what_is_not_ported(flags, tmp_path, capsys):
+    """Usage errors: a device count outside 1..visible (the JAX CLI's
+    check), a non-positive batch, a depth flag on the two-branch model."""
     from crosstalk_tpu_torch.cli.evaluate import main
 
     rc = main(["-m", str(tmp_path), "-s", str(tmp_path), "-p", "none.pth",

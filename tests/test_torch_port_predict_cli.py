@@ -225,7 +225,7 @@ def test_remote_eval_same_csv_from_both_packages(tmp_path, port_server):
     (["--artifact", "m.ctkt", "--int8"], "--int8 requires a local checkpoint"),
     (["-p", "m.pth", "--int8", "-o", "double"], "gated to the single-branch family"),
     (["--artifact", "m.ctkt", "--url", "http://h:1"], "exactly one of"),
-    (["-p", "m.pth", "--num_devices", "2"], "--num_devices 2"),
+    (["--artifact", "m.ctkt", "--num_devices", "2"], "--num_devices > 1 requires a checkpoint"),
     ([], "exactly one of"),
     (["-p", "m.pth", "--url", "http://h:1"], "exactly one of"),
     (["--url", "http://h:1", "--request_tiles", "0"], "--request_tiles must be positive"),

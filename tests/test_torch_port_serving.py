@@ -593,7 +593,7 @@ def test_port_server_shutdown_before_start_returns():
     (["--quantize", "int8", "-o", "double"], "gated to the single-branch family"),
     (["--quantize", "int8", "--calibration_mixed_dir", "m", "--calibration_source_dir", "s",
       "--calibration_tiles", "0"], "--calibration_tiles must be positive"),
-    (["--num_devices", "2"], "--num_devices 2"),
+    (["--num_devices", "0"], "--num_devices 0 requested but only"),
     (["--port", "99999"], "--port must be in 0-65535"),
     (["--image_size", "0"], "--image_size must be positive"),
     (["--batch_buckets", "x,2"], "comma-separated integers"),

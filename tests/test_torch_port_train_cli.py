@@ -1,7 +1,7 @@
 """The port's train CLI on the CPU (``--device cpu``) against the JAX
 package's: 24 seeded 32 px pairs, a width-8 single-branch model with 3
 blocks, ``-b 8``. Checks the artifact names, the split, resume (equal to
-the uninterrupted run, flips and dropout on), the rejected flags, the JAX
+the uninterrupted run, flips and dropout on), the usage errors, the JAX
 analyser on the port's run directory, and the quickstart dataset."""
 
 import csv
@@ -168,19 +168,32 @@ def test_nonpositive_flags_exit_1(flags, name, capsys):
     assert f"{name} must be positive" in capsys.readouterr().out
 
 
+MULTIHOST = ["--multihost", "--coordinator_address", "localhost:1"]
+
+
 @pytest.mark.parametrize("flags", [
-    ["--num_devices", "2"],
-    ["--multihost"],
-    ["--coordinator_address", "localhost:1234"],
-    ["--num_processes", "2"],
-    ["--process_id", "0"],
-    ["--profile", "trace"],
-    ["--debug_nans"],
+    (["--num_devices", "0"], "--num_devices 0 requested but only"),
+    (["--num_devices", "100000"], "--num_devices 100000 requested but only"),
+    (["--multihost"], "needs the coordinator address"),
+    (["--coordinator_address", "localhost:1234"], "needs the process count"),
+    ([*MULTIHOST, "--num_processes", "2", "--process_id", "2"],
+     "process id 2 is outside 0..1"),
+    ([*MULTIHOST, "--num_processes", "1", "--process_id", "0", "--num_devices", "2"],
+     "--num_devices 2 must equal --num_processes 1"),
+    (["--num_devices", "2", "--data_placement", "device"],
+     "--data_placement device is single-device only"),
+    (["--num_devices", "2", "-b", "6", "--grad_accum", "2"],
+     "per-device batch 3 must divide by --grad_accum 2"),
 ])
 def test_unported_flags_exit_1(flags, tmp_path, capsys):
+    """The data-parallel and multi-host flags' usage errors, as the JAX CLI
+    reports them (cli/train.py:196-201, :403-408, :445-449), before any
+    rank starts or anything is written."""
+    flags, message = flags
     rc = port_train(["-m", "M", "-s", "S", "--output_base", str(tmp_path), *flags])
     assert rc == 1
-    assert "Error" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert out.startswith("Error") and message in out
     assert not list(tmp_path.glob("training_run_*"))
 
 
