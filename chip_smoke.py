@@ -82,12 +82,26 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      models (K1 counted in both ranks); the replica set [cuda:0, cuda:0]
      through ``make_predictor`` and the eval engine against one replica;
      the eval, predict and serve CLIs refusing more devices than the host
-     has. Two ranks on one card check the arithmetic, not scaling.
+     has. Two ranks on one card check the arithmetic, not scaling;
+ 11. the host and workflow tools: the native C++ TIFF decoder (its g++
+     build wall at first use; the 256 phase-4 pairs decoded natively and by
+     the Python decoder with 8 threads, bitwise equal, pairs/s of each);
+     ``tools/scale_bench`` on the single-branch model at full width over
+     1024 generated 256x256 pairs (the cold packed-cache build rate, one
+     ``-b 128`` epoch of the train path, and with ``--feed_only`` the host
+     feed alone); ``python -m crosstalk_tpu_torch evaluate --fast`` in
+     process (its CSV equal to phase 4's) and ``--help`` as a subprocess;
+     ``doctor`` on the single-branch checkpoint at 256 px; ``serve_bench``
+     with 8 clients for 10 s; ``analyse`` over the run dirs of phases 8 and
+     10 against their logs; ``unmix_demo`` (4 pairs) on phase 9's trained
+     weights; a 2x1 ``sweep`` with ``--analyse`` and one ``distill`` epoch;
+     and the decoder counter: no pair of phases 4-11's float64 sets fell
+     back to the Python decoder.
 
 Each path that runs K1 starts with its launch count at 0 and is read just
 after (``launches_by_path`` in the kernels JSON). Every number is printed
 beside the card's name and power limit. Before the last three lines come
-the phase-8, phase-9 and phase-10 JSON lines; the last three are the kernels JSON,
+the phase-8, phase-9, phase-10 and phase-11 JSON lines; the last three are the kernels JSON,
 the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 Imports nothing of the JAX package.
 """
@@ -99,6 +113,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2167,6 +2182,228 @@ def phase_parallel(root: str, ckpts: dict, mixed_dir: str, source_dir: str,
     return out
 
 
+SCALE_PAIRS = 1024     # phase 11's scale_bench dataset (256x256 tiles)
+SCALE_BATCH = 128
+SERVE_BENCH_S = 10     # seconds of the serve_bench window
+DECODE_THREADS = 8
+
+
+def run_tool(main_fn, argv: list, label: str) -> tuple:
+    """Call a tool's ``main`` in process, echo what it printed; -> (its
+    output lines, its last line as JSON or None)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    check(rc == 0, f"{label}: exit code {rc}")
+    lines = out.strip().splitlines()
+    try:
+        last = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        last = None
+    return lines, last
+
+
+def decode_rates(mixed_dir: str, source_dir: str) -> dict:
+    """11a: the 256 phase-4 pairs decoded natively and by the Python decoder
+    with DECODE_THREADS threads, bitwise equal; pairs/s, best of 3."""
+    from crosstalk_tpu_torch.data import native_loader
+    from crosstalk_tpu_torch.data.index import PairIndex
+    from crosstalk_tpu_torch.data.pipeline import load_tiles
+
+    status = native_loader.build_status()
+    check(status["error"] is None, f"native decoder built with g++: {status['error']}")
+    print(f"native decoder: {'built' if status['built'] else 'loaded'} "
+          f"{os.path.basename(status['path'])} in {status['seconds']:.2f} s (first use, "
+          f"phase 4; {os.cpu_count()} CPUs)", flush=True)
+    samples = PairIndex(mixed_dir, source_dir).samples
+    out = {"build_s": status["seconds"], "built": status["built"],
+           "cpu_count": os.cpu_count(), "threads": DECODE_THREADS}
+    arrays = {}
+    for name, native in (("native", True), ("python", False)):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            arrays[name] = load_tiles(samples, jobs=DECODE_THREADS, use_native=native)
+            best = min(best, time.perf_counter() - t0)
+        out[f"{name}_pairs_per_s"] = len(samples) / best
+    check(np.array_equal(arrays["native"], arrays["python"]),
+          f"native and Python decoders bitwise equal on the {len(samples)} phase-4 pairs")
+    print(f"decode ({CARD}; host clock, {os.cpu_count()} CPUs, {DECODE_THREADS} threads, "
+          f"best of 3): native {out['native_pairs_per_s']:.1f} pairs/s, Python "
+          f"{out['python_pairs_per_s']:.1f} pairs/s "
+          f"({out['native_pairs_per_s'] / out['python_pairs_per_s']:.2f}x)", flush=True)
+    return out
+
+
+def check_analysis(base: str) -> dict:
+    """11f: ``cli/analyse.py`` over one base of training_run_* dirs: one
+    row per run dir, its min train/val losses the cells of the run's log
+    at the minima, read as pandas reads them (``_pandas_float``: the JAX
+    analyser's values, a few ulps from Python's ``float`` on some cells)."""
+    from crosstalk_tpu_torch.cli.analyse import _pandas_float
+    from crosstalk_tpu_torch.cli.analyse import main as analyse_main
+
+    out_csv = os.path.join(base, "training_analysis_results.csv")
+    run_tool(analyse_main, ["-d", base, "-o", out_csv], f"analyse {os.path.basename(base)}")
+    with open(out_csv) as f:
+        rows = {r["directory"]: r for r in csv.DictReader(f)}
+    dirs = sorted(glob.glob(os.path.join(base, "training_run_*")))
+    check(sorted(rows) == [os.path.basename(d) for d in dirs],
+          f"analyse {os.path.basename(base)}: {len(rows)} rows for {len(dirs)} run dirs")
+    for d in dirs:
+        log = read_log(d)
+        row = rows[os.path.basename(d)]
+        got = (float(row["min_train_loss"]), float(row["min_val_loss"]))
+        cells = [min((r[c] for r in log), key=float) for c in (1, 2)]
+        want = tuple(_pandas_float(c) for c in cells)
+        ulps = [abs(g - float(c)) / math.ulp(float(c)) for g, c in zip(got, cells)]
+        check(got == want, f"analyse {os.path.basename(d)}: min train/val loss {got} = "
+                           f"the log's cells {cells} as pandas reads them ({ulps[0]:.0f} "
+                           f"and {ulps[1]:.0f} ulps from Python's float)")
+    return {"rows": len(rows)}
+
+
+def phase_host_tools(root: str, ckpts: dict, trained: str, mixed_dir: str,
+                     source_dir: str, by_path: dict) -> dict:
+    """Phase 11: the native decoder, scale_bench, the dispatcher, doctor,
+    serve_bench, analyse, unmix_demo, sweep and distill, in process."""
+    from crosstalk_tpu_torch.__main__ import main as dispatch
+    from crosstalk_tpu_torch.data.pipeline import load_tiles
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+    from crosstalk_tpu_torch.tools import (
+        distill,
+        scale_bench,
+        serve_bench,
+        sweep,
+        unmix_demo,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"decode": decode_rates(mixed_dir, source_dir)}
+    deliberate_python = 3 * N_PAIRS  # 11a's Python-decoder runs
+
+    # 11b: the cold packed-cache build and one epoch of the train path at
+    # full width, then the host feed alone over the same (now warm) cache
+    data = os.path.join(root, "scale")
+    flags = ["-n", str(SCALE_PAIRS), "-b", str(SCALE_BATCH), "--epochs", "1",
+             "--size", str(SIZE), "--data_dir", data]
+    _, cold = run_tool(scale_bench.main, flags, "scale_bench")
+    _, feed = run_tool(scale_bench.main, flags + ["--feed_only"], "scale_bench --feed_only")
+    check(cold["cache_build"]["cold"] and cold["cache_build"]["decoded"]["python"] == 0
+          and all(math.isfinite(e["loss"]) for e in cold["epochs"]),
+          f"scale_bench: cold cache of {SCALE_PAIRS} pairs decoded natively, finite loss")
+    out["scale_bench"] = {
+        "cold_cache_pairs_per_s": cold["cache_build"]["pairs_per_s"],
+        "epoch_tiles_per_s": cold["epochs"][0]["tiles_per_s"],
+        "h2d_mb_per_s": cold["h2d_mb_per_s"],
+        "feed_tiles_per_s": feed["feed_epochs"][0]["tiles_per_s"],
+    }
+    print(f"scale_bench ({CARD}; {os.cpu_count()} CPUs, {DECODE_THREADS} decode threads): cold "
+          f"cache {out['scale_bench']['cold_cache_pairs_per_s']:.1f} pairs/s, epoch "
+          f"{out['scale_bench']['epoch_tiles_per_s']:.1f} tiles/s (-b {SCALE_BATCH}, bf16, "
+          f"single-branch full width), feed {out['scale_bench']['feed_tiles_per_s']:.1f} "
+          f"tiles/s", flush=True)
+    shutil.rmtree(data)
+
+    # 11c: the dispatcher's evaluate --fast against phase 4's --fast CSV
+    base = os.path.join(root, "dispatch")
+    fused_input_block.launches = 0
+    rc = dispatch(["evaluate", "-m", mixed_dir, "-s", source_dir, "-p", ckpts["single"],
+                   "-j", "8", "--batch_size", str(BATCH), "--device", "cuda", "-o", "single",
+                   "--output_base", base, "--fast"])
+    torch.cuda.synchronize()
+    launches = by_path["dispatcher_eval_single"] = fused_input_block.launches
+    check(rc == 0 and launches == math.ceil(N_PAIRS / BATCH),
+          f"python -m crosstalk_tpu_torch evaluate --fast: exit code {rc}, K1 launched "
+          f"{launches} times")
+    got = read_csv(os.path.join(base, "eval_run_*", "test_predictions_*.csv"))
+    want = read_csv(os.path.join(root, "single_fast", "eval_run_*", "test_predictions_*.csv"))
+    check(got == want, f"dispatcher evaluate --fast: its {len(got)} CSV rows equal phase 4's")
+    helped = subprocess.run([sys.executable, "-m", "crosstalk_tpu_torch", "--help"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            capture_output=True, text=True, timeout=120)
+    check(helped.returncode == 0 and "usage: python -m crosstalk_tpu_torch" in helped.stdout,
+          f"python -m crosstalk_tpu_torch --help: exit code {helped.returncode}")
+
+    # 11d: doctor with the single-branch checkpoint at the main path's size
+    fused_input_block.launches = 0
+    lines, _ = run_tool(dispatch, ["doctor", "-p", ckpts["single"], "--image_size", str(SIZE)],
+                        "doctor")
+    by_path["doctor_single"] = fused_input_block.launches
+    decoder = [ln for ln in lines if "native TIFF decoder" in ln]
+    check(len(decoder) == 1 and decoder[0].split()[0] == "ok"
+          and by_path["doctor_single"] == 2,
+          f"doctor: native decoder reported built, K1 launched "
+          f"{by_path['doctor_single']} times (expected 2)")
+
+    # 11e: serve_bench, 8 clients
+    fused_input_block.launches = 0
+    _, served = run_tool(serve_bench.main, ["-p", ckpts["single"], "--image_size", str(SIZE),
+                                            "--clients", str(N_CLIENTS), "--seconds",
+                                            str(SERVE_BENCH_S), "--device", "cuda"],
+                         "serve_bench")
+    launches = by_path["serve_bench_single"] = fused_input_block.launches
+    check(launches == served["batches"] + 1,
+          f"serve_bench: K1 launched {launches} times = {served['batches']} batches + 1 warmup")
+    out["serve_bench"] = served
+    print(f"serve_bench ({CARD}): {served['tiles_per_sec']} tiles/s, p50 "
+          f"{served['latency_ms_p50']} ms, p99 {served['latency_ms_p99']} ms, "
+          f"{served['requests']} requests of 32 tiles, {N_CLIENTS} clients, "
+          f"device busy {served['device_busy_frac']}", flush=True)
+
+    # 11f: analyse over the run dirs of phases 8 and 10
+    out["analyse"] = {name: check_analysis(os.path.join(root, name))
+                      for name in ("train_single", "train_double", "train_nccl_single",
+                                   "train_nccl_double")}
+
+    # 11g: unmix_demo on phase 9's trained single-branch weights
+    fused_input_block.launches = 0
+    _, demo = run_tool(unmix_demo.main, ["-p", trained, "-o", os.path.join(root, "demo.png"),
+                                         "--pairs", "4", "--size", str(SIZE),
+                                         "--device", "cuda"], "unmix_demo")
+    by_path["unmix_demo_single"] = fused_input_block.launches
+    check(demo["pairs"] == 4 and math.isfinite(demo["mean_bleed_removed_pct"])
+          and by_path["unmix_demo_single"] > 0,
+          f"unmix_demo: {demo['mean_bleed_removed_pct']}% of the bleed energy removed, "
+          f"K1 launched {by_path['unmix_demo_single']} times")
+    out["unmix_demo"] = demo
+
+    # 11h: a 2x1 sweep and a distillation, one epoch each, full width
+    t0 = time.perf_counter()
+    base = os.path.join(root, "sweep")
+    run_tool(sweep.main, ["-m", mixed_dir, "-s", source_dir, "--batch_sizes", "64", "128",
+                          "--learning_rates", "1e-3", "-n", "1", "-j", "8",
+                          "--output_base", base, "--analyse", "--device", "cuda"], "sweep")
+    out["sweep"] = {"s": time.perf_counter() - t0, **check_analysis(base)}
+    check(out["sweep"]["rows"] == 2, "sweep: 2 run dirs analysed")
+    t0 = time.perf_counter()
+    base = os.path.join(root, "distill")
+    run_tool(distill.main, ["-m", mixed_dir, "-s", source_dir, "-p", trained, "-b", "64",
+                            "-n", "1", "-j", "8", "--output_base", base, "--device", "cuda"],
+             "distill")
+    (run_dir,) = glob.glob(os.path.join(base, "training_run_*"))
+    check(len(read_log(run_dir)) == 1
+          and glob.glob(os.path.join(run_dir, "crosstalk_regression_model_trained_*.pth")),
+          "distill: one log row and the student's final .pth")
+    out["distill_s"] = time.perf_counter() - t0
+
+    decoded = dict(load_tiles.decoded)
+    python_pairs = decoded["python"] - deliberate_python
+    check(decoded["native"] > 0 and python_pairs == 0,
+          f"decoder counter over phases 4-11: {decoded['native']} pairs native, "
+          f"{python_pairs} in Python outside 11a's deliberate runs (expected 0)")
+    out["decoded"] = decoded
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 11 (host and workflow tools) wall: {out['phase_wall_s']:.1f} s ({CARD})",
+          flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -2196,18 +2433,21 @@ def main() -> int:
         print(f"phase 9 (int8 tier and export) wall: {int8['phase_wall_s']:.1f} s ({CARD})",
               flush=True)
         parallel = phase_parallel(root, ckpts, mixed_dir, source_dir, by_path)
+        host_tools = phase_host_tools(root, ckpts, trained, mixed_dir, source_dir, by_path)
     paths = ["eval_single", "eval_double", "serve_single_f32", "serve_single_f16",
              "serve_double", "predict_single", "predict_double",
              "eval_trained_single", "eval_trained_double",
              "eval_trained_single_negated_bn", "eval_trained_double_negated_bn",
              "calibrate_single", "predict_int8_single", "serve_int8_single",
              "eval_ranks_single", "eval_ranks_double", "serve_replicas_single",
-             "eval_replicas_single"]
+             "eval_replicas_single", "dispatcher_eval_single", "doctor_single",
+             "serve_bench_single", "unmix_demo_single"]
     check(sorted(by_path) == sorted(paths) and all(by_path[p] > 0 for p in paths),
           f"K1 launched on every path: {by_path}")
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"int8_export": int8}), flush=True)
     print(json.dumps({"data_parallel": parallel}), flush=True)
+    print(json.dumps({"host_tools": host_tools}), flush=True)
     print(f"chip_smoke.py wall: {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
 
     kernel = {

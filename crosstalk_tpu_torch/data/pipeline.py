@@ -12,8 +12,13 @@
      batch an ``index_select`` there, in the same order as
      ``iterate_batches``.
 
-The tiles are decoded by the Python decoder (``data/tiff.py``); the JAX
-package's native C++ decoder is not ported yet.
+The decode runs in the native C++ decoder (``native/tile_loader.cpp``
+through ``data/native_loader.py``: a thread pool parsing the dataset's
+baseline-TIFF flavour straight into the packed buffer). A request it cannot
+serve (an exotic TIFF, a bad path, a shape mismatch, no compiler) goes to
+the threaded Python decoder (``data/tiff.py``), which gives the same pixels
+and raises the clear errors; ``load_tiles.decoded`` counts the pairs each
+decoder served, so a broken build does not hide behind the fallback.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import collections
 import concurrent.futures as cf
 import hashlib
 import os
+import threading
 from typing import Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -55,9 +61,14 @@ def load_tiles(
     samples: Sequence[Sample],
     jobs: int = 1,
     out: Optional[np.ndarray] = None,
+    use_native: bool = True,
 ) -> np.ndarray:
     """Decode all tile pairs into a packed (N, H, W, 2) float32 array with
-    a pool of ``jobs`` threads."""
+    a pool of ``jobs`` threads: the native decoder first, the Python decoder
+    when it cannot serve the request (or ``use_native=False``).
+
+    ``load_tiles.decoded`` counts the pairs decoded natively and in Python
+    (under a lock: servers and tools decode on several threads)."""
     if not samples:
         raise ValueError("load_tiles() received no samples")
     first = read_tile(samples[0].mixed_path)
@@ -65,6 +76,18 @@ def load_tiles(
     n = len(samples)
     if out is None:
         out = np.empty((n, h, w, 2), dtype=np.float32)
+
+    if use_native and isinstance(out, np.ndarray) and out.flags["C_CONTIGUOUS"]:
+        from crosstalk_tpu_torch.data.native_loader import load_pairs_native
+
+        if load_pairs_native(
+            [s.mixed_path for s in samples],
+            [s.source_path for s in samples],
+            out,
+            threads=max(jobs, 1),
+        ):
+            _count_decoded("native", n)
+            return out
 
     def _load(i: int) -> None:
         for c, path in ((0, samples[i].mixed_path), (1, samples[i].source_path)):
@@ -84,7 +107,17 @@ def load_tiles(
     else:
         for i in range(n):
             _load(i)
+    _count_decoded("python", n)
     return out
+
+
+load_tiles.decoded = {"native": 0, "python": 0}
+_decoded_lock = threading.Lock()
+
+
+def _count_decoded(decoder: str, pairs: int) -> None:
+    with _decoded_lock:
+        load_tiles.decoded[decoder] += pairs
 
 
 class TileStore:

@@ -546,3 +546,46 @@ def test_cuda_replica_predictor_equals_one_replica(cuda_device):
     got = two(raw)
     np.testing.assert_array_equal(got, np.concatenate([one(raw[:2]), one(raw[2:])]))
     np.testing.assert_allclose(got, one(raw), rtol=0, atol=5e-4)
+
+
+# --- the dispatcher and doctor on the card ----------------------------------
+
+@pytest.mark.cuda
+def test_cuda_doctor_passes_and_builds_k1(cuda_device, tmp_path, capsys):
+    from crosstalk_tpu_torch.__main__ import main as dispatch
+    from crosstalk_tpu_torch.io.torch_convert import save_pth
+
+    ckpt = str(tmp_path / "m.pth")
+    save_pth(ckpt, _small_checkpoint("single")[1])
+    before = fused_input_block.launches
+    assert dispatch(["doctor", "-p", ckpt, "--image_size", "32"]) == 0
+    out = capsys.readouterr().out
+    for check in ("devices", "kernel build cache", "native TIFF decoder", "--fast forward",
+                  "checkpoint"):
+        assert f"  ok    {check} " in out, check
+    assert "K1 libinput_block_" in out and "K1 launched 2x on the card" in out
+    assert fused_input_block.launches - before == 2
+
+
+@pytest.mark.cuda
+def test_cuda_dispatcher_evaluate_fast_launches_k1(cuda_device, tmp_path):
+    import csv
+    import glob
+    import math
+
+    from crosstalk_tpu_torch.__main__ import main as dispatch
+    from crosstalk_tpu_torch.data.synthetic import generate_dataset
+    from crosstalk_tpu_torch.io.torch_convert import save_pth
+
+    mixed, source = generate_dataset(str(tmp_path / "data"), num_pairs=10, size=32, seed=1,
+                                     progress_every=0, block=4)
+    ckpt = str(tmp_path / "m.pth")
+    save_pth(ckpt, _small_checkpoint("single")[1])
+    before = fused_input_block.launches
+    assert dispatch(["evaluate", "-m", mixed, "-s", source, "-p", ckpt, "--fast",
+                     "--batch_size", "4", "--output_base", str(tmp_path / "out")]) == 0
+    assert fused_input_block.launches - before == math.ceil(10 / 4)
+    (path,) = glob.glob(str(tmp_path / "out" / "eval_run_*" / "test_predictions_*.csv"))
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 10 and all(math.isfinite(float(r["Predicted_Label"])) for r in rows)

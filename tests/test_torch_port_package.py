@@ -81,6 +81,20 @@ def test_fresh_process_check_covers_the_parallel_and_debug_modules():
     } <= names
 
 
+def test_fresh_process_check_covers_the_host_and_workflow_modules():
+    names = set(_module_names())
+    assert {
+        "crosstalk_tpu_torch.__main__", "crosstalk_tpu_torch.native",
+        "crosstalk_tpu_torch.data.native_loader", "crosstalk_tpu_torch.data.pipeline",
+        "crosstalk_tpu_torch.data.synthetic", "crosstalk_tpu_torch.data.remix",
+        "crosstalk_tpu_torch.cli.analyse", "crosstalk_tpu_torch.cli.doctor",
+        "crosstalk_tpu_torch.tools.make_dataset", "crosstalk_tpu_torch.tools.serve_bench",
+        "crosstalk_tpu_torch.tools.scale_bench", "crosstalk_tpu_torch.tools.make_pretrained",
+        "crosstalk_tpu_torch.tools.sweep", "crosstalk_tpu_torch.tools.distill",
+        "crosstalk_tpu_torch.tools.unmix_demo",
+    } <= names
+
+
 def test_import_loads_no_jax_in_a_fresh_process():
     mods = _module_names() + ["chip_smoke"]
     code = (
@@ -114,8 +128,9 @@ def test_source_scan_finds_no_jax_import():
 
 def test_kernel_source_ships_as_package_data():
     text = (ROOT / "pyproject.toml").read_text()
-    assert '"crosstalk_tpu_torch" = ["csrc/*.cu"]' in text
+    assert '"crosstalk_tpu_torch" = ["csrc/*.cu", "native/*.cpp"]' in text
     assert (PKG / "csrc" / "input_block.cu").exists()
+    assert (PKG / "native" / "tile_loader.cpp").exists()
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
@@ -128,6 +143,28 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("tpu")
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("make_pretrained", ["-m", "M", "-s", "S"]),
+    ("sweep", ["-m", "M", "-s", "S"]),
+    ("distill", ["-m", "M", "-s", "S", "-p", "t.pth"]),
+    ("scale_bench", ["-n", "2"]),
+    ("serve_bench", []),
+    ("unmix_demo", ["-p", "m.pth", "--pairs", "1", "--size", "16"]),
+])
+def test_workflow_tools_without_device_raise_on_a_cudaless_host(tool, argv, monkeypatch,
+                                                                tmp_path):
+    """Each tool runs on the card unless given ``--device cpu``: without a
+    card it raises before it trains, serves or writes anything."""
+    import importlib
+
+    main = importlib.import_module(f"crosstalk_tpu_torch.tools.{tool}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv + (["--output_base", str(tmp_path)] if tool in ("sweep", "distill") else []))
+    assert not list(tmp_path.glob("training_run_*"))
 
 
 def test_eval_cli_without_device_raises_on_a_cudaless_host(monkeypatch, tmp_path):
