@@ -96,12 +96,23 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      10 against their logs; ``unmix_demo`` (4 pairs) on phase 9's trained
      weights; a 2x1 ``sweep`` with ``--analyse`` and one ``distill`` epoch;
      and the decoder counter: no pair of phases 4-11's float64 sets fell
-     back to the Python decoder.
+     back to the Python decoder;
+ 12. the benchmark entry point: ``crosstalk_tpu_torch.tools.bench.main([])``
+     at its defaults (both models at full width, the int8 tier, 256x256
+     tiles): every rate finite and positive, the batches that ran (a
+     halving is printed), K1's launches on each inference measure (4 x 32:
+     the warm-up and three timed units; the int8 one adds its calibration),
+     its ``infer_tps`` against phase 4's normalize + ``--fast`` rate at
+     batch 64 (a ratio outside 0.5-2 fails: the bench would time the wrong
+     work), ``--num_devices`` beyond the visible cards as a usage error, and
+     K1's time at the bench's batches (512 and 256) beside its bound there,
+     its plain version's and the cuDNN chain's.
 
 Each path that runs K1 starts with its launch count at 0 and is read just
 after (``launches_by_path`` in the kernels JSON). Every number is printed
 beside the card's name and power limit. Before the last three lines come
-the phase-8, phase-9, phase-10 and phase-11 JSON lines; the last three are the kernels JSON,
+the phase-8, phase-9, phase-10, phase-11 and phase-12 JSON lines (phase
+12's holds the bench's JSON, the card and its wall); the last three are the kernels JSON,
 the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 Imports nothing of the JAX package.
 """
@@ -188,10 +199,10 @@ def phase_build() -> dict:
     return res
 
 
-def k1_inputs(gen: torch.Generator, two_branch: bool):
+def k1_inputs(gen: torch.Generator, two_branch: bool, batch: int = BATCH):
     """Flagship block-0 inputs on the card; every fifth BN scale negative."""
     dev = "cuda"
-    x = torch.rand(BATCH, SIZE, SIZE, 2, device=dev, generator=gen)
+    x = torch.rand(batch, SIZE, SIZE, 2, device=dev, generator=gen)
     f = 64 if two_branch else 128
     if two_branch:  # both branches' C=1 kernels, block-diagonal
         kernel = torch.zeros(3, 3, 2, 2 * f, device=dev)
@@ -206,38 +217,10 @@ def k1_inputs(gen: torch.Generator, two_branch: bool):
     return x, kernel, scale, bias
 
 
-def phase_k1(gen: torch.Generator, two_branch: bool) -> dict:
-    from crosstalk_tpu_torch.ops.input_block import (
-        fused_input_block,
-        fused_input_block_packed,
-        fused_input_block_reference,
-        pack_input_block,
-    )
-
-    label = "two-branch block-diagonal" if two_branch else "single-branch"
-    x, kernel, scale, bias = k1_inputs(gen, two_branch)
-    packed = pack_input_block(kernel, scale, bias)
-    y = fused_input_block_packed(x, packed)
-    public = fused_input_block(x, kernel, scale, bias)
-    torch.cuda.synchronize()
-    check(torch.equal(y.view(torch.int16), public.view(torch.int16)),
-          f"K1 {label}: packed and public entries give identical bytes")
-    ref = fused_input_block_reference(x, kernel, scale, bias)
-    torch.cuda.synchronize()
-    check(y.shape == ref.shape and y.dtype == torch.bfloat16,
-          f"K1 {label}: shape {tuple(y.shape)} {y.dtype}")
-    yf, rf = y.float(), ref.float()
-    diff = (yf - rf).abs()
-    big = rf.abs() > 1e-3
-    max_rel = (diff[big] / rf.abs()[big]).max().item() if big.any() else 0.0
-    max_abs_small = diff[~big].max().item() if (~big).any() else 0.0
-    max_abs = diff.max().item()
-    check(bool(torch.isfinite(yf).all()) and max_rel <= ULP_BF16 and max_abs_small <= 1e-5,
-          f"K1 {label} vs plain: max rel {max_rel:.3e} (tol {ULP_BF16:.3e} "
-          f"where |y| > 1e-3), max abs elsewhere {max_abs_small:.3e} (tol 1e-5)")
-
-    # the cuDNN chain computing the same function: bf16 channels_last conv,
-    # affine, LeakyReLU, 2x2 max pool (timed only; the port never calls it)
+def cudnn_chain(x, kernel, scale, bias):
+    """-> a call of the cuDNN chain computing K1's function: bf16
+    channels_last conv, affine, LeakyReLU, 2x2 max pool (timed only; the
+    port never calls it)."""
     x_nchw = x.permute(0, 3, 1, 2)
     w_cl = kernel.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
@@ -248,9 +231,54 @@ def phase_k1(gen: torch.Generator, two_branch: bool) -> dict:
         z = F.conv2d(x_nchw.to(torch.bfloat16), w_cl, padding=1)
         return F.max_pool2d(F.leaky_relu(z * s_b + b_b, 0.01), 2)
 
+    return library
+
+
+def phase_k1(gen: torch.Generator, two_branch: bool, batch: int = BATCH) -> dict:
+    """K1 at ``batch`` rows: packed and public entries byte-equal, held
+    against its plain version (BATCH rows at a time, so the f32 reference
+    stays small at the bench's batches), timed beside that version, the
+    cuDNN chain and its bound."""
+    from crosstalk_tpu_torch.ops.input_block import (
+        fused_input_block,
+        fused_input_block_packed,
+        fused_input_block_reference,
+        pack_input_block,
+    )
+
+    label = "two-branch block-diagonal" if two_branch else "single-branch"
+    label = f"{label}, batch {batch}"
+    x, kernel, scale, bias = k1_inputs(gen, two_branch, batch)
+    packed = pack_input_block(kernel, scale, bias)
+    y = fused_input_block_packed(x, packed)
+    public = fused_input_block(x, kernel, scale, bias)
+    torch.cuda.synchronize()
+    check(torch.equal(y.view(torch.int16), public.view(torch.int16)),
+          f"K1 {label}: packed and public entries give identical bytes")
+    del public
+    want = (batch, SIZE // 2, SIZE // 2, kernel.shape[-1])
+    check(tuple(y.shape) == want and y.dtype == torch.bfloat16,
+          f"K1 {label}: shape {tuple(y.shape)} {y.dtype} (expected {want} bfloat16)")
+    finite, max_rel, max_abs_small, max_abs = True, 0.0, 0.0, 0.0
+    for i in range(0, batch, BATCH):
+        yf = y[i:i + BATCH].float()
+        rf = fused_input_block_reference(x[i:i + BATCH], kernel, scale, bias).float()
+        diff = (yf - rf).abs()
+        big = rf.abs() > 1e-3
+        finite = finite and bool(torch.isfinite(yf).all())
+        if big.any():
+            max_rel = max(max_rel, (diff[big] / rf.abs()[big]).max().item())
+        if (~big).any():
+            max_abs_small = max(max_abs_small, diff[~big].max().item())
+        max_abs = max(max_abs, diff.max().item())
+    del y
+    check(finite and max_rel <= ULP_BF16 and max_abs_small <= 1e-5,
+          f"K1 {label} vs plain: max rel {max_rel:.3e} (tol {ULP_BF16:.3e} "
+          f"where |y| > 1e-3), max abs elsewhere {max_abs_small:.3e} (tol 1e-5)")
+
     ms = time_ms(lambda: fused_input_block_packed(x, packed))
     plain_ms = time_ms(lambda: fused_input_block_reference(x, kernel, scale, bias))
-    library_ms = time_ms(library)
+    library_ms = time_ms(cudnn_chain(x, kernel, scale, bias))
 
     b, h, w, c = x.shape
     f = kernel.shape[-1]
@@ -260,13 +288,13 @@ def phase_k1(gen: torch.Generator, two_branch: bool) -> dict:
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"K1 {label}: kernel {ms:.4f} ms ({ms * 1e3 / b:.3f} us/tile), "
+    print(f"K1 {label} ({CARD}): kernel {ms:.4f} ms ({ms * 1e3 / b:.3f} us/tile), "
           f"plain {plain_ms:.4f} ms, cuDNN chain {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_ms * 1e3 / b:.3f} us/tile; "
           f"{bytes_moved} B, {flops} FLOP), share of bound {bound_ms / ms:.3f}",
           flush=True)
     return {
-        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "batch": batch, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_share": bound_ms / ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
@@ -391,9 +419,10 @@ def phase_main_path(root: str, by_path: dict):
     return ckpts, mixed_dir, source_dir
 
 
-def time_stages(variant: str, ckpt: str) -> None:
+def time_stages(variant: str, ckpt: str) -> dict:
     """Device time of each stage of one eval batch (B=64, 256x256): the
-    normalize, the --fast and f32 forwards, and the five metrics."""
+    normalize, the --fast and f32 forwards, and the five metrics. -> the
+    stage times in ms."""
     from crosstalk_tpu_torch.config import ModelConfig
     from crosstalk_tpu_torch.data.transforms import normalize_batch_nhwc
     from crosstalk_tpu_torch.eval.engine import model_forward
@@ -439,6 +468,7 @@ def time_stages(variant: str, ckpt: str) -> None:
     print(f"{variant} head GEMMs per batch of {BATCH} ({CARD}): f32 output "
           f"{f32_out:.4f} ms, bf16 output {bf16_out:.4f} ms "
           f"(first layer {weights[0].shape[1]} -> {weights[0].shape[0]})", flush=True)
+    return times
 
 
 SERVE_SIZES = (1, 3, 17, 64, 200)
@@ -2404,6 +2434,91 @@ def phase_host_tools(root: str, ckpts: dict, trained: str, mixed_dir: str,
     return out
 
 
+BENCH_INFER_BATCHES = {"single": 512, "double": 256}   # the bench's defaults
+
+
+def phase_bench(single_stages: dict, by_path: dict) -> dict:
+    """Phase 12: ``tools/bench.py`` at its defaults on the card (both models
+    at full width, int8 on, 256x256 tiles): every rate finite and positive,
+    the batches that ran, K1's launches on each inference measure, the
+    bench's ``infer_tps`` against phase 4's ``--fast`` + normalize rate at
+    batch 64; ``--num_devices`` beyond the visible cards as a usage error;
+    K1 at the bench's batches held against its plain version and timed
+    beside its bound there."""
+    import contextlib
+    import io
+
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+    from crosstalk_tpu_torch.tools import bench
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    steps = bench.INFER_SCAN_LEN
+    originals = bench.bench_model, bench.bench_int8_single
+
+    def counted(fn, path_of):
+        def run(*args, **kwargs):
+            fused_input_block.launches = 0
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            by_path[path_of(*args)] = fused_input_block.launches
+            return out
+        return run
+
+    bench.bench_model = counted(bench.bench_model, lambda variant, *_: f"bench_{variant}")
+    bench.bench_int8_single = counted(bench.bench_int8_single, lambda *_: "bench_int8_single")
+    try:
+        _, result = run_tool(bench.main, [], "python -m crosstalk_tpu_torch.tools.bench")
+    finally:
+        bench.bench_model, bench.bench_int8_single = originals
+    rates = ("infer_tps", "train_tps", "two_branch_infer_tps", "two_branch_train_tps",
+             "int8_infer_tps")
+    check(result is not None and all(isinstance(result[k], float) and math.isfinite(result[k])
+                                     and result[k] > 0 for k in rates),
+          "bench: " + ", ".join(f"{k} {result and result.get(k)}" for k in rates))
+    check(result["device"] == torch.cuda.get_device_name(0)
+          and result["power_limit"] == CARD.rsplit(",", 1)[1].strip(),
+          f"bench: device {result['device']!r}, power limit {result['power_limit']!r}")
+    asked = {"infer_batch": 512, "two_branch_infer_batch": 256, "int8_infer_batch": 512,
+             "train_batch": 128, "two_branch_train_batch": 128}
+    for key, want in asked.items():
+        if result[key] != want:
+            print(f"bench: {key} halved from {want} to {result[key]} (out of memory)",
+                  flush=True)
+    for path, want in (("bench_single", 4 * steps), ("bench_double", 4 * steps),
+                       ("bench_int8_single", 4 * steps + 1)):
+        check(by_path[path] == want,
+              f"bench: K1 launched {by_path[path]} times on {path} (expected {want}: "
+              f"warm-up and 3 timed units of {steps} steps"
+              + (", 1 calibration)" if path == "bench_int8_single" else ")"))
+    per_64_ms = single_stages["normalize"] + single_stages["fast_forward"]
+    stage_tps = BATCH / per_64_ms * 1e3
+    ratio = result["infer_tps"] / stage_tps
+    check(0.5 <= ratio <= 2.0,
+          f"bench infer_tps {result['infer_tps']} / phase 4's normalize + --fast rate at batch "
+          f"{BATCH} ({stage_tps:.1f} tiles/s) = {ratio:.3f} (within 0.5-2)")
+
+    n = torch.cuda.device_count() + 1
+    err = io.StringIO()
+    code = 0
+    with contextlib.redirect_stderr(err):
+        try:
+            bench.main(["--num_devices", str(n)])
+        except SystemExit as e:
+            code = e.code
+    msg = err.getvalue().strip().splitlines()[-1] if err.getvalue().strip() else ""
+    check(code == 2 and f"only {n - 1} cuda device(s) visible" in msg,
+          f"bench --num_devices {n}: exit code {code}, {msg!r}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    k1 = {variant: phase_k1(gen, variant == "double", batch)
+          for variant, batch in BENCH_INFER_BATCHES.items()}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 12 (benchmark entry point) wall: {wall:.1f} s ({CARD})", flush=True)
+    return {"result": result, "card": CARD, "stage_tps_64": stage_tps,
+            "infer_tps_ratio": ratio, "k1": k1, "phase_wall_s": wall}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -2418,8 +2533,7 @@ def main() -> int:
     by_path: dict = {}  # K1's launches on each path, counted from 0
     with tempfile.TemporaryDirectory() as root:
         ckpts, mixed_dir, source_dir = phase_main_path(root, by_path)
-        for variant, ckpt in ckpts.items():
-            time_stages(variant, ckpt)
+        stages = {variant: time_stages(variant, ckpt) for variant, ckpt in ckpts.items()}
         phase_serve(root, ckpts, by_path)
         phase_serve_cli(root, ckpts["single"], mixed_dir, source_dir)
         phase_predict_whole_image(root, ckpts, by_path)
@@ -2434,6 +2548,7 @@ def main() -> int:
               flush=True)
         parallel = phase_parallel(root, ckpts, mixed_dir, source_dir, by_path)
         host_tools = phase_host_tools(root, ckpts, trained, mixed_dir, source_dir, by_path)
+    bench = phase_bench(stages["single"], by_path)
     paths = ["eval_single", "eval_double", "serve_single_f32", "serve_single_f16",
              "serve_double", "predict_single", "predict_double",
              "eval_trained_single", "eval_trained_double",
@@ -2441,13 +2556,15 @@ def main() -> int:
              "calibrate_single", "predict_int8_single", "serve_int8_single",
              "eval_ranks_single", "eval_ranks_double", "serve_replicas_single",
              "eval_replicas_single", "dispatcher_eval_single", "doctor_single",
-             "serve_bench_single", "unmix_demo_single"]
+             "serve_bench_single", "unmix_demo_single", "bench_single", "bench_double",
+             "bench_int8_single"]
     check(sorted(by_path) == sorted(paths) and all(by_path[p] > 0 for p in paths),
           f"K1 launched on every path: {by_path}")
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"int8_export": int8}), flush=True)
     print(json.dumps({"data_parallel": parallel}), flush=True)
     print(json.dumps({"host_tools": host_tools}), flush=True)
+    print(json.dumps({"bench": bench}), flush=True)
     print(f"chip_smoke.py wall: {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
 
     kernel = {
@@ -2457,10 +2574,11 @@ def main() -> int:
         "replaces": "crosstalk_tpu/ops/pallas/input_block.py:168",
         "launches": sum(by_path.values()),
         **single,
-        "max_abs_err": max(single["max_abs_err"], double["max_abs_err"]),
+        "max_abs_err": max(t["max_abs_err"] for t in (single, double, *bench["k1"].values())),
         "launches_by_path": by_path,
         "resources_c2": resources,
         "two_branch_block_diagonal": double,
+        "at_bench_batches": bench["k1"],
     }
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(smi, flush=True)

@@ -44,6 +44,17 @@ def counter_key(*words: int) -> int:
     return h
 
 
+def normalize_tile(img: torch.Tensor) -> torch.Tensor:
+    """Per-tile min-max normalization over the last two (H, W) axes, with
+    any leading dims. Constant tiles pass through unchanged (the
+    reference's division-by-zero guard, train_model.py:213)."""
+    lo = img.amin(dim=(-2, -1), keepdim=True)
+    hi = img.amax(dim=(-2, -1), keepdim=True)
+    span = hi - lo
+    safe = torch.where(span > 0, span, torch.ones_like(span))
+    return torch.where(span > 0, (img - lo) / safe, img)
+
+
 def normalize_batch_nhwc(batch: torch.Tensor) -> torch.Tensor:
     """Min-max normalize a (B, H, W, C) batch per (sample, channel) tile."""
     lo = batch.amin(dim=(1, 2), keepdim=True)

@@ -102,9 +102,10 @@ def _read_header(f, path: str) -> dict:
     if len(raw_len) < _LEN.size:
         raise ValueError(f"{path}: truncated header")
     (meta_len,) = _LEN.unpack(raw_len)
-    raw_meta = f.read(meta_len)
-    if len(raw_meta) < meta_len:
+    # checked before the read: a corrupt length would ask read() for exabytes
+    if meta_len > os.fstat(f.fileno()).st_size - f.tell():
         raise ValueError(f"{path}: truncated meta block")
+    raw_meta = f.read(meta_len)
     return json.loads(raw_meta.decode("utf-8"))
 
 
@@ -153,6 +154,25 @@ def load_checkpoint(run_dir: str, map_location="cpu") -> Optional[Tuple[dict, di
             f"({'; '.join(errors)}). Delete the checkpoints/ dir to restart "
             "from scratch, or restore a best_model .pth."
         )
+    return None
+
+
+def read_checkpoint_meta(run_dir: str) -> Optional[dict]:
+    """The host-side meta of the latest readable checkpoint, from its
+    header and JSON alone: the state bytes are neither read nor hashed (a
+    status watcher polls this against a two-branch checkpoint of ~1.6 GB).
+    Falls back to the previous generation; None when neither has a
+    readable header, never an exception. The port has no counterpart of
+    the JAX package's legacy two-file format, so there is no sidecar to
+    fall back to after that."""
+    ckpt_dir = os.path.join(run_dir, CKPT_DIR)
+    for name in (CKPT_FILE, PREV_FILE):
+        path = os.path.join(ckpt_dir, name)
+        try:
+            with open(path, "rb") as f:
+                return _read_header(f, path)
+        except (OSError, ValueError):
+            continue
     return None
 
 

@@ -10,7 +10,8 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default, see registry.init_model).
 
 With a ``process_group`` the BatchNorms are cross-replica
 (``CrossReplicaBatchNorm2d``/``1d``), the JAX package's
-``BatchNorm(axis_name='data')``; without one they are ``nn.BatchNorm2d``/``1d``.
+``BatchNorm(axis_name='data')``; without one they are ``nn.BatchNorm2d`` and
+``OneRowBatchNorm1d`` (``nn.BatchNorm1d`` that also trains on one row).
 """
 
 from __future__ import annotations
@@ -55,31 +56,37 @@ class _CrossReplicaBatchNorm:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.process_group is None:
             return super().forward(x)
-        self._check_input_dim(x)
-        dims = [0] + list(range(2, x.dim()))
-        shape = [1, -1] + [1] * (x.dim() - 2)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        c = x.shape[1]
-        # this rank's mean and biased variance (Welford), then the global
-        # mean and the global sum of squared deviations, one all-reduce
-        # each: a float32 sum of squares over hundreds of thousands of
-        # values per channel loses the variance to cancellation
-        var_r, mean_r = torch.var_mean(xf, dim=dims, unbiased=False)
-        n_r = x.numel() // c
-        count = torch.full((1,), n_r, dtype=xf.dtype, device=x.device)
-        sums = _all_reduce(torch.cat([mean_r * n_r, count]), self.process_group)
-        n = sums[c]
-        mean = sums[:c] / n
-        m2 = _all_reduce(n_r * (var_r + (mean_r - mean).square()), self.process_group)
-        var = m2 / n
-        with torch.no_grad():
-            unbiased = var * (n / torch.clamp(n - 1, min=1.0))
-            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
-            self.num_batches_tracked.add_(1)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        return _train_forward(self, x, lambda t: _all_reduce(t, self.process_group))
+
+
+def _train_forward(bn, x: torch.Tensor, reduce) -> torch.Tensor:
+    """Train-mode BatchNorm of ``bn`` over the rows that ``reduce`` (a sum
+    over ranks, or the identity) gathers; updates its running statistics."""
+    bn._check_input_dim(x)
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    c = x.shape[1]
+    # this rank's mean and biased variance (Welford), then the global
+    # mean and the global sum of squared deviations, one all-reduce
+    # each: a float32 sum of squares over hundreds of thousands of
+    # values per channel loses the variance to cancellation
+    var_r, mean_r = torch.var_mean(xf, dim=dims, unbiased=False)
+    n_r = x.numel() // c
+    count = torch.full((1,), n_r, dtype=xf.dtype, device=x.device)
+    sums = reduce(torch.cat([mean_r * n_r, count]))
+    n = sums[c]
+    mean = sums[:c] / n
+    m2 = reduce(n_r * (var_r + (mean_r - mean).square()))
+    var = m2 / n
+    with torch.no_grad():
+        unbiased = var * (n / torch.clamp(n - 1, min=1.0))
+        bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased)
+        bn.num_batches_tracked.add_(1)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(shape)) * inv.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype)
 
 
 class CrossReplicaBatchNorm2d(_CrossReplicaBatchNorm, nn.BatchNorm2d):
@@ -100,9 +107,26 @@ class CrossReplicaBatchNorm1d(_CrossReplicaBatchNorm, nn.BatchNorm1d):
         return "BatchNorm1d"
 
 
+class OneRowBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` that also trains on a batch of one row, as the JAX
+    package's BatchNorm does (crosstalk_tpu/models/layers.py:104-114): the
+    batch variance is 0, so every output is the layer's bias, and the
+    running variance takes the unbiased variance with its divisor held at
+    1. torch's layer refuses such a batch in train mode. Same
+    ``state_dict`` and ``repr`` as ``nn.BatchNorm1d``."""
+
+    def _get_name(self) -> str:
+        return "BatchNorm1d"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and x.shape[0] == 1:
+            return _train_forward(self, x, lambda t: t)
+        return super().forward(x)
+
+
 def _batch_norm(dims: int, features: int, process_group, **kw) -> nn.Module:
     if process_group is None:
-        return (nn.BatchNorm2d if dims == 2 else nn.BatchNorm1d)(features, **kw)
+        return (nn.BatchNorm2d if dims == 2 else OneRowBatchNorm1d)(features, **kw)
     cls = CrossReplicaBatchNorm2d if dims == 2 else CrossReplicaBatchNorm1d
     return cls(features, process_group=process_group, **kw)
 

@@ -21,7 +21,7 @@ def build_model(cfg: ModelConfig, image_size: int = 256, device=None,
     forward does. ``device='meta'`` builds the module without storage.
     ``process_group`` (the JAX package's ``axis_name``) makes every
     BatchNorm cross-replica over its ranks in train mode; None (the
-    default) builds plain ``nn.BatchNorm2d``/``1d``."""
+    default) builds plain ``nn.BatchNorm2d`` and ``layers.OneRowBatchNorm1d``."""
     common = dict(
         image_size=image_size,
         leaky_slope=cfg.leaky_slope,
@@ -67,6 +67,17 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def architecture_summary(model: nn.Module) -> str:
+    """``repr(model)``, then one line per parameter (its ``.pth`` key, shape
+    and dtype) and the total: the layout of the JAX package's summary."""
+    lines = [repr(model), "", "Parameters:"]
+    for name, p in model.named_parameters():
+        dtype = str(p.dtype).removeprefix("torch.")
+        lines.append(f"  {name}: {tuple(p.shape)} {dtype}")
+    lines.append(f"Total trainable parameters: {count_params(model):,}")
+    return "\n".join(lines)
 
 
 def torch_style_repr(cfg: ModelConfig, image_size: int = 256) -> str:

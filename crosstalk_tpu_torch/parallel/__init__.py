@@ -1,4 +1,9 @@
-"""Data parallelism: ranks (distributed.py) and replica sets (mesh.py)."""
+"""Data parallelism: ranks (distributed.py) and replica sets (mesh.py).
+
+The JAX package's names, less ``make_global_batch``: each rank keeps its
+own rows of a batch (parallel/distributed.py). Plus ``replicated_forward``
+(one forward per device of a replica set) and ``rank_device``.
+"""
 
 from crosstalk_tpu_torch.parallel.distributed import (
     allgather_to_host,
@@ -13,8 +18,6 @@ from crosstalk_tpu_torch.parallel.mesh import (
     replicated_forward,
 )
 
-# The JAX package's names, less ``make_global_batch``: each rank keeps its
-# own rows of a batch (parallel/distributed.py).
 __all__ = [
     "data_mesh",
     "maybe_data_mesh",

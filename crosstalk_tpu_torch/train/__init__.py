@@ -1,4 +1,10 @@
-"""Training: schedules, the train and validation steps, and the epoch loop."""
+"""Training: schedules, the train and validation steps, and the epoch loop.
+
+The JAX package's names, less ``batch_sharding`` and ``replicate_state``:
+each rank keeps its own rows of a batch and its own copy of the state
+(parallel/distributed.py), so there is nothing to shard or replicate. Plus
+``finish_training_run``, the run-dir epilogue the train CLI shares.
+"""
 
 from crosstalk_tpu_torch.train.loop import finish_training_run, train_model
 from crosstalk_tpu_torch.train.schedules import (

@@ -95,6 +95,31 @@ def test_fresh_process_check_covers_the_host_and_workflow_modules():
     } <= names
 
 
+def test_fresh_process_check_covers_the_bench():
+    assert "crosstalk_tpu_torch.tools.bench" in set(_module_names())
+
+
+def test_lazy_top_level_names_load_no_jax_in_a_fresh_process():
+    """``import crosstalk_tpu_torch`` imports no torch; each public name
+    resolves on first use, and none of them loads JAX."""
+    code = (
+        "import re, sys\n"
+        "import crosstalk_tpu_torch as c\n"
+        "assert 'torch' not in sys.modules, 'torch imported with the package'\n"
+        "assert callable(c.make_fast_forward) and 'torch' in sys.modules\n"
+        "for name in c._PUBLIC_API:\n"
+        "    getattr(c, name)\n"
+        f"bad = sorted(m for m in sys.modules if re.match({FORBIDDEN.pattern!r}, m))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_import_loads_no_jax_in_a_fresh_process():
     mods = _module_names() + ["chip_smoke"]
     code = (
