@@ -106,13 +106,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      batch 64 (a ratio outside 0.5-2 fails: the bench would time the wrong
      work), ``--num_devices`` beyond the visible cards as a usage error, and
      K1's time at the bench's batches (512 and 256) beside its bound there,
-     its plain version's and the cuDNN chain's.
+     its plain version's and the cuDNN chain's;
+ 13. the measuring probes (``crosstalk_tpu_torch/tools/``), each through its
+     ``run`` at full width: ``int8_tier_probe`` (both families at batch 512
+     on 100 ``make_dataset --preset microscopy`` tiles, then ``-p`` on phase
+     8's single-branch checkpoint; its int8 rate against phase 12's
+     ``int8_infer_tps``, 0.8-1.25; the trained MAE vs f32 within 2e-2),
+     ``int8_probe`` (int32 accumulators not all zero), ``bwd_audit -o
+     single`` and ``-o double``, ``two_branch_sol_probe`` and
+     ``two_branch_input_probe`` at their defaults (prediction max |diff|
+     within 2e-3, the kernel's branches within 2^-7 x max |y| of the cuDNN
+     blocks) and ``grouped_trunk_probe`` (mean |diff| within 2^-7 x mean
+     |y|): every rate finite and positive; K1's launches per probe path (0
+     on ``int8_probe``, ``bwd_audit`` and ``grouped_trunk_probe``), and K1
+     against its plain version at the probes' batches that phases 1 and 12
+     do not hold (two-branch 512 and 8, both at 100).
 
 Each path that runs K1 starts with its launch count at 0 and is read just
 after (``launches_by_path`` in the kernels JSON). Every number is printed
 beside the card's name and power limit. Before the last three lines come
-the phase-8, phase-9, phase-10, phase-11 and phase-12 JSON lines (phase
-12's holds the bench's JSON, the card and its wall); the last three are the kernels JSON,
+the phase-8 to phase-13 JSON lines (phase 12's holds the bench's JSON,
+the card and its wall; phase 13's each probe's result); the last three are the kernels JSON,
 the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 Imports nothing of the JAX package.
 """
@@ -2519,6 +2533,161 @@ def phase_bench(single_stages: dict, by_path: dict) -> dict:
             "infer_tps_ratio": ratio, "k1": k1, "phase_wall_s": wall}
 
 
+PROBE_TILES = 100      # the int8 tier probe's real tiles (its deviation batch)
+PROBE_K1_BATCHES = (("double", 512), ("single", PROBE_TILES), ("double", PROBE_TILES),
+                    ("double", 8))  # K1's batches in phase 13 that phases 1 and 12 do not hold
+GROUPED_REL_MAE = ULP_BF16  # the grouped trunk vs the per-branch one, mean |diff| / mean |y|
+
+
+def counted_probe(module, argv: list, path: str, by_path: dict) -> dict:
+    """A probe's ``run(argv)`` with K1's launch count zeroed before and read
+    after into ``by_path[path]``; its printed lines echoed."""
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+
+    fused_input_block.launches = 0
+    result = module.run(argv)
+    torch.cuda.synchronize()
+    by_path[path] = fused_input_block.launches
+    for line in module.report(result):
+        print(line, flush=True)
+    return result
+
+
+def finite_positive(values) -> bool:
+    return all(isinstance(v, float) and math.isfinite(v) and v > 0 for v in values)
+
+
+def phase_probes(root: str, trained: str, int8_tps: float, by_path: dict) -> dict:
+    """Phase 13: the six measuring probes of ``crosstalk_tpu_torch/tools/``
+    at full width on the card, with K1's launches on each, what they print
+    held to its bounds, and K1 held against its plain version at the
+    batches they give it that phases 1 and 12 do not hold."""
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+    from crosstalk_tpu_torch.tools import (
+        bwd_audit,
+        grouped_trunk_probe,
+        int8_probe,
+        int8_tier_probe,
+        make_dataset,
+        two_branch_input_probe,
+        two_branch_sol_probe,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out, launches = {}, {}
+    data = os.path.join(root, "microscopy")
+    run_tool(make_dataset.main, [data, "-n", str(PROBE_TILES), "--size", str(SIZE),
+                                 "--preset", "microscopy"], "make_dataset --preset microscopy")
+
+    # 13a: the int8 tier probe, K1 counted per family (``probe_family`` is
+    # looked up at call time, as phase 12 counts the bench's measures)
+    family = int8_tier_probe.probe_family
+    run_name = {}  # the -p run's family is counted as "trained"
+
+    def per_family(cfg, *args):
+        fused_input_block.launches = 0
+        result = family(cfg, *args)
+        torch.cuda.synchronize()
+        by_path[f"probe_int8_tier_{run_name.get('name', cfg.variant)}"] = (
+            fused_input_block.launches)
+        return result
+
+    int8_tier_probe.probe_family = per_family
+    try:
+        _, out["int8_tier_random"] = run_tool(int8_tier_probe.main, ["--data_dir", data],
+                                              "int8_tier_probe")
+        run_name["name"] = "trained"
+        _, out["int8_tier_trained"] = run_tool(
+            int8_tier_probe.main, ["--data_dir", data, "-p", trained, "-o", "single"],
+            "int8_tier_probe -p (phase 8's single-branch checkpoint)")
+    finally:
+        int8_tier_probe.probe_family = family
+    tiers = {**{v: r for v, r in out["int8_tier_random"]["families"].items()},
+             "trained": out["int8_tier_trained"]["families"]["single"]}
+    for name, r in tiers.items():
+        check(finite_positive([r["bf16_tps"], r["int8_tps"], r["speedup"]])
+              and math.isfinite(r["mae_vs_f32"]),
+              f"int8_tier_probe {name}: bf16 {r['bf16_tps']:.1f}, int8 {r['int8_tps']:.1f} "
+              f"tiles/s, MAE vs f32 {r['mae_vs_f32']:.3e}, spread {r['f32_spread']:.3e}")
+        steps = int8_tier_probe.SCAN_LEN
+        want = 1 + 2 * 4 * steps + 1  # calibration, 2 rates x 4 units, the deviation
+        path = f"probe_int8_tier_{name}"
+        if r["bf16_batch"] == r["int8_batch"] == 512:
+            check(by_path[path] == want, f"{path}: K1 launched {by_path[path]} times "
+                                         f"(expected {want})")
+        else:
+            print(f"{path}: batch halved to {r['bf16_batch']} / {r['int8_batch']} (out of "
+                  f"memory); K1 launched {by_path[path]} times", flush=True)
+    check(tiers["trained"]["mae_vs_f32"] <= INT8_ENVELOPE,
+          f"int8_tier_probe on phase 8's trained checkpoint: MAE vs f32 "
+          f"{tiers['trained']['mae_vs_f32']:.3e} (tol {INT8_ENVELOPE}), f32 spread "
+          f"{tiers['trained']['f32_spread']:.3e}")
+    ratio = tiers["single"]["int8_tps"] / int8_tps
+    check(0.8 <= ratio <= 1.25,
+          f"int8_tier_probe single int8 {tiers['single']['int8_tps']:.1f} tiles/s / phase 12's "
+          f"int8_infer_tps {int8_tps} = {ratio:.3f} (within 0.8-1.25: both time one program)")
+    out["int8_tps_ratio_to_bench"] = ratio
+
+    # 13b-f: the other five, each counted
+    for name, module, argv in (
+            ("int8_probe", int8_probe, []),
+            ("bwd_audit_single", bwd_audit, ["-o", "single"]),
+            ("bwd_audit_double", bwd_audit, ["-o", "double"]),
+            ("two_branch_sol", two_branch_sol_probe, []),
+            ("two_branch_input", two_branch_input_probe, []),
+            ("grouped_trunk", grouped_trunk_probe, [])):
+        t0 = time.perf_counter()
+        command = ["python -m", module.__name__] + argv
+        print(f"{name}: {' '.join(command)} (its defaults otherwise)", flush=True)
+        counts = by_path if name.startswith("two_branch") else launches
+        out[name] = counted_probe(module, argv, f"probe_{name}", counts)
+        out[name]["wall_s"] = time.perf_counter() - t0
+    for name in ("int8_probe", "bwd_audit_single", "bwd_audit_double", "grouped_trunk"):
+        check(launches[f"probe_{name}"] == 0,
+              f"{name}: K1 launched {launches[f'probe_{name}']} times (expected 0)")
+    scan = 32  # the two-branch probes' default --scan: 4 units (warm-up + best of 3) each
+    for name, want in (("two_branch_sol", 2 * 4 * scan), ("two_branch_input", 2 + 2 * 4 * scan)):
+        check(by_path[f"probe_{name}"] == want,
+              f"{name}: K1 launched {by_path[f'probe_{name}']} times (expected {want})")
+
+    blocks = out["int8_probe"]["blocks"]
+    check(all(finite_positive([b["bf16_us_per_img"], b["int8_us_per_img"], b["bf16_tflops"],
+                               b["int8_tops"]]) and b["int8_abs_sum"] > 0
+              for b in blocks.values()),
+          "int8_probe: every rate finite and positive, int32 accumulators not all zero: "
+          + ", ".join(f"{k} speedup {b['speedup']:.3f}" for k, b in blocks.items()))
+    for name in ("bwd_audit_single", "bwd_audit_double"):
+        check(finite_positive(out[name]["us_per_img"].values()),
+              f"{name}: " + json.dumps({m: round(v, 1)
+                                        for m, v in out[name]["us_per_img"].items()}))
+    sol = out["two_branch_sol"]
+    check(finite_positive([sol["matmul_tflops"], sol["sum_of_stages_us"], sol["full_forward_us"]]
+                          + [s["us_per_img"] for s in sol["stages"].values()]),
+          f"two_branch_sol_probe: matmul {sol['matmul_tflops']:.1f} TFLOP/s, sum of stages "
+          f"{sol['sum_of_stages_us']:.2f} us/img, full forward {sol['full_forward_us']:.2f}")
+    inp = out["two_branch_input"]
+    check(finite_positive(inp["us_per_img"].values())
+          and inp["prediction_max_diff"] <= 2e-3
+          and max(inp["equivalence_bleed_rel"], inp["equivalence_source_rel"]) <= ULP_BF16,
+          f"two_branch_input_probe: prediction max|diff| {inp['prediction_max_diff']:.3e} (tol "
+          f"2e-3); kernel vs cuDNN max|diff| / max|y| bleed {inp['equivalence_bleed_rel']:.3e}, "
+          f"source {inp['equivalence_source_rel']:.3e} (tol {ULP_BF16:.3e})")
+    grouped = out["grouped_trunk"]
+    check(all(finite_positive(t.values()) for t in grouped["trunks"].values())
+          and grouped["equivalence"]["rel_mae"] <= GROUPED_REL_MAE,
+          f"grouped_trunk_probe: rel MAE {grouped['equivalence']['rel_mae']:.3e} (tol "
+          f"{GROUPED_REL_MAE:.3e}), rel max {grouped['equivalence']['rel_max']:.3e}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    out["k1"] = {f"{variant}_{batch}": phase_k1(gen, variant == "double", batch)
+                 for variant, batch in PROBE_K1_BATCHES}
+    out["launches_not_k1_paths"] = launches
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 13 (measuring probes) wall: {out['phase_wall_s']:.1f} s ({CARD})", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -2539,8 +2708,8 @@ def main() -> int:
         phase_predict_whole_image(root, ckpts, by_path)
         training = phase_train(root, mixed_dir, source_dir, by_path)
         t9 = time.perf_counter()
-        trained = make_spread_checkpoint(root, training.pop("finals")["single"], mixed_dir,
-                                         source_dir)
+        finals = training.pop("finals")
+        trained = make_spread_checkpoint(root, finals["single"], mixed_dir, source_dir)
         int8 = phase_int8(root, ckpts, trained, mixed_dir, source_dir, by_path)
         int8["export"] = phase_export(root, ckpts, mixed_dir, source_dir)
         int8["phase_wall_s"] = time.perf_counter() - t9
@@ -2548,7 +2717,9 @@ def main() -> int:
               flush=True)
         parallel = phase_parallel(root, ckpts, mixed_dir, source_dir, by_path)
         host_tools = phase_host_tools(root, ckpts, trained, mixed_dir, source_dir, by_path)
-    bench = phase_bench(stages["single"], by_path)
+        bench = phase_bench(stages["single"], by_path)
+        probes = phase_probes(root, finals["single"], bench["result"]["int8_infer_tps"],
+                              by_path)
     paths = ["eval_single", "eval_double", "serve_single_f32", "serve_single_f16",
              "serve_double", "predict_single", "predict_double",
              "eval_trained_single", "eval_trained_double",
@@ -2557,7 +2728,8 @@ def main() -> int:
              "eval_ranks_single", "eval_ranks_double", "serve_replicas_single",
              "eval_replicas_single", "dispatcher_eval_single", "doctor_single",
              "serve_bench_single", "unmix_demo_single", "bench_single", "bench_double",
-             "bench_int8_single"]
+             "bench_int8_single", "probe_int8_tier_single", "probe_int8_tier_double",
+             "probe_int8_tier_trained", "probe_two_branch_sol", "probe_two_branch_input"]
     check(sorted(by_path) == sorted(paths) and all(by_path[p] > 0 for p in paths),
           f"K1 launched on every path: {by_path}")
     print(json.dumps({"training": training}), flush=True)
@@ -2565,6 +2737,7 @@ def main() -> int:
     print(json.dumps({"data_parallel": parallel}), flush=True)
     print(json.dumps({"host_tools": host_tools}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
+    print(json.dumps({"probes": probes}), flush=True)
     print(f"chip_smoke.py wall: {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
 
     kernel = {
@@ -2574,11 +2747,13 @@ def main() -> int:
         "replaces": "crosstalk_tpu/ops/pallas/input_block.py:168",
         "launches": sum(by_path.values()),
         **single,
-        "max_abs_err": max(t["max_abs_err"] for t in (single, double, *bench["k1"].values())),
+        "max_abs_err": max(t["max_abs_err"] for t in (single, double, *bench["k1"].values(),
+                                                      *probes["k1"].values())),
         "launches_by_path": by_path,
         "resources_c2": resources,
         "two_branch_block_diagonal": double,
         "at_bench_batches": bench["k1"],
+        "at_probe_batches": probes["k1"],
     }
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(smi, flush=True)

@@ -73,7 +73,7 @@ BASELINE_TPS = 5000.0  # BASELINE.md's rebuild target, tiles/s per chip
 CALIBRATION_TILES = 256
 
 
-def _sync(devices: Sequence[torch.device]) -> None:
+def sync(devices: Sequence[torch.device]) -> None:
     for d in set(devices):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
@@ -85,17 +85,17 @@ def _free(devices: Sequence[torch.device]) -> None:
         torch.cuda.empty_cache()
 
 
-def _timed(unit: Callable[[], object], devices: Sequence[torch.device],
+def timed(unit: Callable[[], object], devices: Sequence[torch.device],
            repeats: int = 3) -> float:
     """One warm-up call of ``unit``, then the best host-clock seconds of
     ``repeats`` calls, each fenced by a synchronize of every device."""
     unit()
-    _sync(devices)
+    sync(devices)
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
         unit()
-        _sync(devices)
+        sync(devices)
         best = min(best, time.perf_counter() - t0)
     return best
 
@@ -157,7 +157,7 @@ def infer_seconds(variant: str, batch: int, steps: int, image_size: int,
           for r, d in enumerate(devices)]
     del tiles
     with torch.inference_mode():
-        return _timed(lambda: infer_unit(forwards, xs, steps), devices)
+        return timed(lambda: infer_unit(forwards, xs, steps), devices)
 
 
 def int8_seconds(batch: int, steps: int, image_size: int, device: torch.device) -> float:
@@ -169,7 +169,7 @@ def int8_seconds(batch: int, steps: int, image_size: int, device: torch.device) 
     with torch.inference_mode():
         scales = calibrate_int8(cfg, sd, normalize_batch_nhwc(x[:min(CALIBRATION_TILES, batch)]))
         quant = make_int8_forward(cfg, sd, scales)
-        return _timed(lambda: infer_unit([quant], [x], steps), [device])
+        return timed(lambda: infer_unit([quant], [x], steps), [device])
 
 
 def train_unit(step: Callable, x: torch.Tensor, y: torch.Tensor, steps: int) -> torch.Tensor:
@@ -203,7 +203,7 @@ def train_seconds(variant: str, batch: int, steps: int, image_size: int,
     x, y = torch.from_numpy(x[mine]).to(device), torch.from_numpy(y[mine]).to(device)
 
     def fence():
-        _sync([device])
+        sync([device])
         if process_group is not None:
             dist.barrier(group=process_group)
 
@@ -292,14 +292,22 @@ def bench_int8_single(infer_batch: int, device: torch.device,
     return steps * infer_batch / dt, infer_batch
 
 
-def power_limit(device: torch.device) -> Optional[str]:
-    """The card's ``power.limit`` as nvidia-smi reads it; None on the CPU."""
+def card(device: torch.device) -> Optional[str]:
+    """The card's name and ``power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them; None
+    on the CPU."""
     if device.type != "cuda":
         return None
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
-    return out.splitlines()[0].rsplit(",", 1)[1].strip()
+    return out.splitlines()[0].strip()
+
+
+def power_limit(device: torch.device) -> Optional[str]:
+    """The card's ``power.limit`` as nvidia-smi reads it; None on the CPU."""
+    line = card(device)
+    return None if line is None else line.rsplit(",", 1)[1].strip()
 
 
 def main(argv=None) -> int:

@@ -99,6 +99,14 @@ def test_fresh_process_check_covers_the_bench():
     assert "crosstalk_tpu_torch.tools.bench" in set(_module_names())
 
 
+PROBES = ["int8_tier_probe", "int8_probe", "bwd_audit", "two_branch_sol_probe",
+          "two_branch_input_probe", "grouped_trunk_probe"]
+
+
+def test_fresh_process_check_covers_the_probes():
+    assert {f"crosstalk_tpu_torch.tools.{p}" for p in PROBES} <= set(_module_names())
+
+
 def test_lazy_top_level_names_load_no_jax_in_a_fresh_process():
     """``import crosstalk_tpu_torch`` imports no torch; each public name
     resolves on first use, and none of them loads JAX."""
@@ -177,11 +185,19 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
     ("scale_bench", ["-n", "2"]),
     ("serve_bench", []),
     ("unmix_demo", ["-p", "m.pth", "--pairs", "1", "--size", "16"]),
+    ("int8_tier_probe", ["--data_dir", "no_such_dir"]),
+    ("int8_tier_probe", ["-p", "m.pth", "-o", "double"]),
+    ("int8_probe", []),
+    ("bwd_audit", ["-o", "double"]),
+    ("two_branch_sol_probe", []),
+    ("two_branch_input_probe", ["--size", "16"]),
+    ("grouped_trunk_probe", []),
 ])
 def test_workflow_tools_without_device_raise_on_a_cudaless_host(tool, argv, monkeypatch,
                                                                 tmp_path):
-    """Each tool runs on the card unless given ``--device cpu``: without a
-    card it raises before it trains, serves or writes anything."""
+    """Each tool and probe runs on the card unless given ``--device cpu``:
+    without a card it raises before it trains, serves, measures or writes
+    anything."""
     import importlib
 
     main = importlib.import_module(f"crosstalk_tpu_torch.tools.{tool}").main
