@@ -68,10 +68,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      subprocess driven by ``predict --url`` and ``remote_eval``, served
      against the in-process int8 predictor, and a ``/reload`` of the
      trained checkpoint that must recalibrate; the export tool on the card
-     (both models' bf16 artifacts, the single-branch int8 one), each loaded
-     in a fresh process where ``import crosstalk_tpu_torch`` fails and held
-     against the live tier with and without K1, its time per batch of 64;
-     then ``predict --artifact`` and ``serve --artifact``;
+     (both models' bf16 artifacts, the single-branch int8 one; the
+     single-branch bf16 one with ``--platforms cuda cpu``, a program for
+     each device type in one file, export seconds and size printed), each
+     loaded in a fresh process where ``import crosstalk_tpu_torch`` fails
+     and held against the live tier with and without K1, its time per batch
+     of 64; the two-platform file's cpu program on the host's CPU against
+     the live CPU forward (4 tiles); then ``predict --artifact`` and
+     ``serve --artifact``;
  10. data parallel on the one card: the train CLI as a one-rank NCCL
      cluster (``--multihost --num_processes 1``, both models, ``-b 64 -n
      1``: the run-dir artifacts), the DDP step's first loss and gradients
@@ -120,12 +124,24 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      |y|): every rate finite and positive; K1's launches per probe path (0
      on ``int8_probe``, ``bwd_audit`` and ``grouped_trunk_probe``), and K1
      against its plain version at the probes' batches that phases 1 and 12
-     do not hold (two-branch 512 and 8, both at 100).
+     do not hold (two-branch 512 and 8, both at 100);
+ 14. a run dir the JAX package trained, resumed on the card: a full-width
+     single-branch run dir written here in the JAX package's format (its
+     flax msgpack state by ``flax_msgpack_bytes``, without JAX; params.txt,
+     the log, the best ``.pth``; 2 epochs), ``load_checkpoint`` on it
+     (seconds printed, in this process and twice in a fresh one;
+     parameters, BN statistics, Adam moments and step counts equal the
+     written ones after layout conversion, on the CPU and restored on the
+     card), ``train --resume`` for one epoch at ``-b 64``
+     (its train-pass seconds printed; epoch, step, the log's first rows and
+     ``train_ckpt.jax.bin`` byte for byte checked after the port's
+     checkpoint lands), and the best model through the eval CLI's
+     ``--fast`` (K1 counted on ``resume_jax_single``).
 
 Each path that runs K1 starts with its launch count at 0 and is read just
 after (``launches_by_path`` in the kernels JSON). Every number is printed
 beside the card's name and power limit. Before the last three lines come
-the phase-8 to phase-13 JSON lines (phase 12's holds the bench's JSON,
+the phase-8 to phase-14 JSON lines (phase 12's holds the bench's JSON,
 the card and its wall; phase 13's each probe's result); the last three are the kernels JSON,
 the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 Imports nothing of the JAX package.
@@ -139,6 +155,7 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1318,6 +1335,7 @@ INT8_HEAD_TOL = 1e-6   # the int8 head, card vs CPU from one feature tensor
 INT8_BF16_HEAD_TOL = 5e-4  # its bf16 head, as the --fast path's card-vs-CPU bound
 INT8_COMPARE_TILES = 16
 ARTIFACT_TOL = 1e-6    # an artifact vs the live forward of its tier (DEPLOY.md)
+CPU_PROGRAM_TILES = 4  # tiles through the flagship artifact's cpu program
 ARTIFACT_K1_TOL = 2e-3  # an artifact vs the same tier with K1 on block 0
 INT8_BATCHES = (64, 256)
 SPREAD_MIN = 1e-2      # phase 9's trained weights spread their f32 predictions wider
@@ -1771,9 +1789,10 @@ def phase_int8(root: str, ckpts: dict, trained: str, mixed_dir: str, source_dir:
 
 def phase_export(root: str, ckpts: dict, mixed_dir: str, source_dir: str) -> dict:
     """Phase 9b: the export tool on the card (both models' bf16 artifacts,
-    the single-branch int8 one), each loaded in a fresh process in which
-    ``import crosstalk_tpu_torch`` fails, held against the live forwards,
-    then served and predicted through --artifact."""
+    the single-branch int8 one; the single-branch bf16 one with a cuda and
+    a cpu program), each loaded in a fresh process in which ``import
+    crosstalk_tpu_torch`` fails, held against the live forwards (the cpu
+    program on the CPU), then served and predicted through --artifact."""
     from crosstalk_tpu_torch.cli.predict import main as predict_main
     from crosstalk_tpu_torch.cli.serve import build_parser, build_server
     from crosstalk_tpu_torch.config import ModelConfig
@@ -1783,11 +1802,12 @@ def phase_export(root: str, ckpts: dict, mixed_dir: str, source_dir: str) -> dic
     from crosstalk_tpu_torch.tools.export_model import main as export_main
 
     here = os.path.dirname(os.path.abspath(__file__))
-    arts = {
-        "single_fast": (["-p", ckpts["single"]], "single"),
-        "double_fast": (["-p", ckpts["double"], "-o", "double"], "double"),
-        "single_int8": (["-p", ckpts["single"], "--quantize", "int8", "--calibration_mixed_dir",
-                         mixed_dir, "--calibration_source_dir", source_dir], "single"),
+    arts = {  # the flagship with a program for each device type, the others for the card
+        "single_fast": (["-p", ckpts["single"], "--platforms", "cuda", "cpu"], "single"),
+        "double_fast": (["-p", ckpts["double"], "-o", "double", "--device", "cuda"], "double"),
+        "single_int8": (["-p", ckpts["single"], "--device", "cuda", "--quantize", "int8",
+                         "--calibration_mixed_dir", mixed_dir, "--calibration_source_dir",
+                         source_dir], "single"),
     }
     out, metas = {}, {}
     for name, (flags, _) in arts.items():
@@ -1797,6 +1817,11 @@ def phase_export(root: str, ckpts: dict, mixed_dir: str, source_dir: str) -> dic
         check(rc == 0, f"export_model {name}: exit code {rc} ({time.perf_counter() - t0:.2f} s)")
         out[name] = {"export_s": time.perf_counter() - t0, "mb": os.path.getsize(path) / 1e6}
         metas[name] = read_exported(path)[2]
+        out[name]["platforms"] = metas[name]["platforms"]
+        print(f"export_model {name} ({CARD}): {out[name]['export_s']:.2f} s, "
+              f"{out[name]['mb']:.1f} MB, programs for {metas[name]['platforms']}", flush=True)
+    check(metas["single_fast"]["platforms"] == ["cuda", "cpu"],
+          "export_model --platforms cuda cpu: one artifact with a cuda and a cpu program")
 
     raw = load_raw(mixed_dir, source_dir, BATCH)
     np.save(os.path.join(root, "tiles.npy"), raw)
@@ -1846,6 +1871,27 @@ def phase_export(root: str, ckpts: dict, mixed_dir: str, source_dir: str) -> dic
               f"(tol {ARTIFACT_TOL}), vs the same tier with K1 {err_k1:.2e} (tol "
               f"{ARTIFACT_K1_TOL}); {ms:.3f} ms per batch of {BATCH} ({CARD})")
         del fn
+
+    # the flagship artifact's cpu program, on the CPU against the live CPU
+    # forward without K1 (a few tiles: a full-width bf16 forward on the host)
+    sd = load_pth(ckpts["single"])
+    x_cpu = torch.from_numpy(raw[:CPU_PROGRAM_TILES])
+    fn, _ = load_exported(os.path.join(root, "single_fast.ctkt"), device="cpu")
+    t0 = time.perf_counter()
+    got = fn(raw[:CPU_PROGRAM_TILES])
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        live = make_forward(ModelConfig(), sd, device="cpu", use_kernel=False)(x_cpu).numpy()
+    err = float(np.abs(got - live).max())
+    out["single_fast"].update({"cpu_vs_live": err, "cpu_s_per_batch": cpu_s})
+    check(got.shape == (CPU_PROGRAM_TILES,) and np.isfinite(got).all() and err <= ARTIFACT_TOL,
+          f"artifact single_fast's cpu program vs the live CPU forward without K1 on "
+          f"{CPU_PROGRAM_TILES} tiles: max |diff| {err:.2e} (tol {ARTIFACT_TOL}); "
+          f"{cpu_s:.2f} s on the host's CPU")
+    with_cuda = load_exported(os.path.join(root, "single_fast.ctkt"))[0](raw[:CPU_PROGRAM_TILES])
+    print(f"artifact single_fast: cuda vs cpu program on {CPU_PROGRAM_TILES} tiles max |diff| "
+          f"{float(np.abs(with_cuda - got).max()):.2e}", flush=True)
+    del fn
 
     # predict --artifact and serve --artifact once each
     rc = predict_main(["-m", mixed_dir, "-s", source_dir, "--artifact",
@@ -2688,6 +2734,331 @@ def phase_probes(root: str, trained: str, int8_tps: float, by_path: dict) -> dic
     return out
 
 
+# --- phase 14: a run dir the JAX package trained, resumed on the card -------
+
+JAX_MAGIC = b"CTPUCKPT1\n"     # crosstalk_tpu/io/checkpoint.py's header magic
+JAX_RUN_TS = "2026-01-01_00-00-00"
+JAX_RUN_EPOCHS = 2
+
+
+def _mp_head(n: int, fix: int, fix_max: int, c8, c16: int, c32: int) -> bytes:
+    """msgpack's length prefix: the fix form, else 8, 16 or 32 bits."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    if c8 is not None and n < 1 << 8:
+        return bytes([c8, n])
+    if n < 1 << 16:
+        return bytes([c16]) + struct.pack(">H", n)
+    return bytes([c32]) + struct.pack(">I", n)
+
+
+def _mp_uint(n: int) -> bytes:
+    if n < 0x80:
+        return bytes([n])
+    for code, fmt, top in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                           (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+        if n < top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"{n} does not fit msgpack's uint64")
+
+
+def _mp_str(text: str) -> bytes:
+    raw = text.encode("utf-8")
+    return _mp_head(len(raw), 0xA0, 31, 0xD9, 0xDA, 0xDB) + raw
+
+
+def _mp_ndarray(arr: np.ndarray) -> bytes:
+    """flax's ext 1: a packed (shape, dtype name, C-order bytes)."""
+    data = arr.tobytes("C")
+    payload = (bytes([0x93]) + _mp_head(arr.ndim, 0x90, 15, None, 0xDC, 0xDD)
+               + b"".join(_mp_uint(d) for d in arr.shape) + _mp_str(arr.dtype.name)
+               + _mp_head(len(data), None, 0, 0xC4, 0xC5, 0xC6) + data)
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = (bytes([fixext[n]]) if n in fixext
+            else _mp_head(n, None, 0, 0xC7, 0xC8, 0xC9))
+    return head + struct.pack("b", 1) + payload
+
+
+def flax_msgpack_bytes(tree) -> bytes:
+    """The bytes ``flax.serialization.msgpack_serialize`` writes for a tree
+    of str-keyed dicts (in their insertion order) and numpy arrays under 1
+    GiB each (flax chunks bigger ones): what the JAX package's
+    ``save_checkpoint`` writes for a train state, without JAX, flax or
+    msgpack."""
+    if isinstance(tree, dict):
+        return (_mp_head(len(tree), 0x80, 15, None, 0xDE, 0xDF)
+                + b"".join(_mp_str(k) + flax_msgpack_bytes(v) for k, v in tree.items()))
+    if isinstance(tree, np.ndarray):
+        if tree.nbytes > 1 << 30:
+            raise ValueError("flax chunks arrays above 1 GiB; not written here")
+        return _mp_ndarray(tree)
+    raise TypeError(f"not a train-state leaf: {type(tree).__name__}")
+
+
+def write_jax_checkpoint(path: str, tree: dict, meta: dict) -> bytes:
+    """A checkpoint file as the JAX package's ``save_checkpoint`` writes it:
+    magic, ``<Q`` meta length, meta JSON with the state's sha256, state.
+    -> the file's bytes."""
+    import hashlib
+
+    data = flax_msgpack_bytes(tree)
+    meta_bytes = json.dumps({**meta, "state_sha256": hashlib.sha256(data).hexdigest()}
+                            ).encode("utf-8")
+    blob = JAX_MAGIC + struct.pack("<Q", len(meta_bytes)) + meta_bytes + data
+    with open(path, "wb") as f:
+        f.write(blob)
+    return blob
+
+
+def _sorted_tree(tree):
+    """A nested dict with its keys sorted at every level, as jax.tree
+    rebuilds the dicts of a jitted train state."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def jax_single_params(named: dict) -> dict:
+    """Single-branch torch parameters (reference key schema) -> the flax
+    ``params`` tree: HWIO conv kernels, (in, out) dense kernels, the first
+    dense kernel's rows in the (H, W, C) flatten order."""
+    def a(name):
+        return np.ascontiguousarray(named[name].detach().cpu().numpy())
+
+    tree, k = {}, 0
+    while f"conv_layers.{4 * k}.weight" in named:
+        conv, bn = f"conv_layers.{4 * k}", f"conv_layers.{4 * k + 1}"
+        tree[f"ConvBlock_{k}"] = {
+            "Conv_0": {"kernel": np.ascontiguousarray(a(f"{conv}.weight").transpose(2, 3, 1, 0)),
+                       "bias": a(f"{conv}.bias")},
+            "BatchNorm_0": {"scale": a(f"{bn}.weight"), "bias": a(f"{bn}.bias")},
+        }
+        channels = named[f"{conv}.weight"].shape[0]
+        k += 1
+    w1 = a("fc_layers.1.weight")
+    out, flat = w1.shape
+    side = int(math.isqrt(flat // channels))
+    dense0 = w1.reshape(out, channels, side, side).transpose(2, 3, 1, 0).reshape(flat, out)
+    for i, (lin, bn, kernel) in enumerate(((1, 2, dense0), (5, 6, a("fc_layers.5.weight").T))):
+        tree[f"DenseBNBlock_{i}"] = {
+            "Dense_0": {"kernel": np.ascontiguousarray(kernel), "bias": a(f"fc_layers.{lin}.bias")},
+            "BatchNorm_0": {"scale": a(f"fc_layers.{bn}.weight"), "bias": a(f"fc_layers.{bn}.bias")},
+        }
+    tree["Dense_0"] = {"kernel": np.ascontiguousarray(a("fc_layers.9.weight").T),
+                       "bias": a("fc_layers.9.bias")}
+    return _sorted_tree(tree)
+
+
+def jax_single_stats(sd: dict) -> dict:
+    """The single-branch model's BN running statistics -> flax ``batch_stats``."""
+    prefixes = {}
+    k = 0
+    while f"conv_layers.{4 * k}.weight" in sd:
+        prefixes[f"ConvBlock_{k}"] = f"conv_layers.{4 * k + 1}"
+        k += 1
+    prefixes.update({"DenseBNBlock_0": "fc_layers.2", "DenseBNBlock_1": "fc_layers.6"})
+    return _sorted_tree({
+        block: {"BatchNorm_0": {"mean": sd[f"{p}.running_mean"].cpu().numpy(),
+                                "var": sd[f"{p}.running_var"].cpu().numpy()}}
+        for block, p in prefixes.items()})
+
+
+def jax_train_state(sd: dict, exp_avg: dict, exp_avg_sq: dict, step: int) -> dict:
+    """The state dict of the JAX package's ``TrainState`` (its field order,
+    jitted dicts sorted) for a single-branch model, its Adam moments and
+    its step count (optax's ``count`` equals the step)."""
+    params = {k: v for k, v in sd.items() if not k.split(".")[-1].startswith(
+        ("running_", "num_batches"))}
+    return {
+        "params": jax_single_params(params),
+        "batch_stats": jax_single_stats(sd),
+        "opt_state": {"0": {}, "1": {"count": np.asarray(step, np.int32),
+                                     "mu": jax_single_params(exp_avg),
+                                     "nu": jax_single_params(exp_avg_sq)}},
+        "step": np.asarray(step, np.int32),
+    }
+
+
+class _Tee:
+    """stdout that is also kept, for the lines a CLI prints."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_jax_resume(root: str, ckpt: str, mixed_dir: str, source_dir: str,
+                     by_path: dict) -> dict:
+    """Phase 14: a full-width single-branch run dir in the JAX package's
+    format (written here, without JAX: ``flax_msgpack_bytes``), loaded by
+    ``load_checkpoint`` (every tensor exactly the written one after layout
+    conversion), resumed by the train CLI for one epoch at ``-b 64``, its
+    JAX generation kept byte for byte, and its best model through the eval
+    CLI's ``--fast`` (K1 counted on ``resume_jax_single``)."""
+    import contextlib
+    import hashlib
+
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.data.index import PairIndex, split_samples
+    from crosstalk_tpu_torch.io import artifacts, checkpoint
+    from crosstalk_tpu_torch.io.torch_convert import load_pth, save_pth
+    from crosstalk_tpu_torch.models.registry import build_model
+    from crosstalk_tpu_torch.ops.input_block import fused_input_block
+    from crosstalk_tpu_torch.train.schedules import Schedule
+    from crosstalk_tpu_torch.train.steps import init_train_state
+
+    t_phase = time.perf_counter()
+    sd = load_pth(ckpt)
+    names = [n for n, _ in build_model(ModelConfig(), image_size=SIZE,
+                                       device="meta").named_parameters()]
+    rng = np.random.default_rng(SEED + 14)
+    exp_avg = {n: torch.from_numpy((rng.standard_normal(sd[n].shape) * 1e-3)
+                                   .astype(np.float32)) for n in names}
+    exp_avg_sq = {n: torch.from_numpy((rng.standard_normal(sd[n].shape) * 1e-3) ** 2
+                                      + 1e-8).float() for n in names}
+    n_train = len(split_samples(PairIndex(mixed_dir, source_dir).samples, 0.7, 0.15,
+                                seed=43)[0])
+    steps_per_epoch = n_train // TRAIN_BATCH
+    step = JAX_RUN_EPOCHS * steps_per_epoch
+
+    run_dir = os.path.join(root, "jax_run", f"training_run_{JAX_RUN_TS}_B{TRAIN_BATCH}_LR0.0001")
+    os.makedirs(os.path.join(run_dir, "checkpoints"))
+    artifacts.write_params_txt(run_dir, {
+        "mixed_channel_data_dir": mixed_dir, "pure_source_data_dir": source_dir,
+        "batch_size": TRAIN_BATCH, "learning_rate": 0.0001, "num_epochs": JAX_RUN_EPOCHS,
+        "train_ratio": 0.7, "val_ratio": 0.15, "cpu_jobs": 8, "model_options": "single",
+        "learning_scheduler": "onecycle", "initial_filters": None, "num_conv_blocks": None,
+        "compute_dtype": "bf16", "dropout": None, "output_base": os.path.dirname(run_dir),
+        "resume": None, "num_devices": None, "seed": 43, "profile": None,
+        "checkpoint_every": 1, "grad_accum": 1, "data_placement": "auto",
+        "cache_dir": None, "debug_nans": False, "multihost": False,
+        "coordinator_address": None, "num_processes": None, "process_id": None})
+    schedule = Schedule(OptimConfig(scheduler="onecycle"), JAX_RUN_EPOCHS, steps_per_epoch)
+    train_losses, val_losses, lr_history = [0.05, 0.04], [0.045, 0.041], []
+    with artifacts.TrainingLog(run_dir, JAX_RUN_TS, TRAIN_BATCH, 0.0001,
+                               schedule.scheduler_type, schedule.params_dict) as log:
+        for e in range(JAX_RUN_EPOCHS):
+            lr_history.append(schedule.lr_for_step(e * steps_per_epoch))
+            schedule.on_epoch_end(val_losses[e])
+            log.log_epoch(e + 1, train_losses[e], val_losses[e],
+                          schedule.lr_for_step((e + 1) * steps_per_epoch))
+    save_pth(os.path.join(run_dir, "best_model_onecycle.pth"), sd)
+    t0 = time.perf_counter()
+    jax_path = os.path.join(run_dir, "checkpoints", "train_ckpt.bin")
+    blob = write_jax_checkpoint(jax_path, jax_train_state(sd, exp_avg, exp_avg_sq, step), {
+        "epoch": JAX_RUN_EPOCHS, "global_step": step, "best_val_loss": min(val_losses),
+        "epochs_without_improvement": 0, "train_losses": train_losses,
+        "val_losses": val_losses, "lr_history": lr_history,
+        "schedule": schedule.state_dict()})
+    jax_sha = hashlib.sha256(blob).hexdigest()
+    write_s = time.perf_counter() - t0
+    print(f"wrote a JAX-format run dir: {sum(v.numel() for v in exp_avg.values()):,} params, "
+          f"checkpoint {len(blob) / 1e6:.1f} MB in {write_s:.2f} s", flush=True)
+
+    # what a --resume pays: a fresh process's first load (torch imports
+    # modules at the first optimizer state_dict) and a second one
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, time\n"
+            f"sys.path.insert(0, {here!r})\n"
+            "from crosstalk_tpu_torch.io.checkpoint import load_checkpoint\n"
+            "times = []\n"
+            "for _ in range(2):\n"
+            "    t0 = time.perf_counter()\n"
+            f"    load_checkpoint({run_dir!r})\n"
+            "    times.append(time.perf_counter() - t0)\n"
+            "print(json.dumps(times))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"JAX-format load in a fresh process: {proc.stderr[-2000:]}")
+    fresh_s = json.loads(proc.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    payload, meta = checkpoint.load_checkpoint(run_dir)
+    load_s = time.perf_counter() - t0
+    print(f"JAX-format load seconds: {fresh_s[0]:.3f} first and {fresh_s[1]:.3f} second call "
+          f"in a fresh process, {load_s:.3f} in this one ({len(blob) / 1e6:.1f} MB, "
+          f"single-branch full width; {CARD})", flush=True)
+    model_same = all(torch.equal(payload["model"][k], v) for k, v in sd.items()
+                     if not k.endswith("num_batches_tracked"))
+    opt = payload["optimizer"]["state"]
+    moments_same = all(torch.equal(opt[i]["exp_avg"], exp_avg[n])
+                       and torch.equal(opt[i]["exp_avg_sq"], exp_avg_sq[n])
+                       and float(opt[i]["step"]) == step for i, n in enumerate(names))
+    state = init_train_state(build_model(ModelConfig(), image_size=SIZE, device="cuda"),
+                             OptimConfig())
+    checkpoint.restore_state(state, payload)
+    card_opt = state.optimizer.state_dict()["state"]
+    card_same = (all(torch.equal(v.cpu(), payload["model"][k])
+                     for k, v in state.model.state_dict().items())
+                 and all(torch.equal(card_opt[i][k].cpu(), opt[i][k])
+                         for i in card_opt for k in card_opt[i])
+                 and all(card_opt[i]["step"].device.type == "cpu" for i in card_opt))
+    check(meta["source_format"] == "jax" and meta["epoch"] == JAX_RUN_EPOCHS
+          and payload["step"] == step and model_same and moments_same and card_same,
+          f"JAX-format run dir: parameters, BN statistics, Adam moments and step counts "
+          f"({step}) equal the written ones after layout conversion, on the CPU and on "
+          "the card (step counts on the host)")
+    del state, payload
+    torch.cuda.empty_cache()
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        wall = train_cli(["-m", mixed_dir, "-s", source_dir, "-n", str(JAX_RUN_EPOCHS + 1),
+                          "-j", "8", "--resume", run_dir], "single --resume of a JAX run dir")
+    out = "".join(tee.lines)
+    epoch_line = [ln for ln in out.splitlines()
+                  if ln.startswith(f"Epoch [{JAX_RUN_EPOCHS + 1}/")][-1]
+    tps = float(epoch_line.rsplit("|", 1)[1].split()[0].replace(",", ""))
+    epoch_s = steps_per_epoch * TRAIN_BATCH / tps
+    # the train pass of the resumed epoch, from the CLI's rounded tiles/s: a
+    # few steps in this process, warm or cold as earlier phases left cuDNN;
+    # the resume's own cost is the load seconds above
+    print(f"resumed epoch seconds: {epoch_s:.3f} (train pass only: {steps_per_epoch} steps "
+          f"at -b {TRAIN_BATCH} in this process, {tps:.1f} tiles/s as the CLI rounds it; "
+          f"not a measure of the resume; the CLI {wall:.2f} s with decode, load, val, "
+          f"checkpoint and the 3-split evaluation; {CARD})", flush=True)
+    _, new_meta = checkpoint.load_checkpoint(run_dir)
+    rows = read_log(run_dir)
+    kept = os.path.join(run_dir, "checkpoints", checkpoint.JAX_KEPT_FILE)
+    with open(kept, "rb") as f:
+        kept_sha = hashlib.sha256(f.read()).hexdigest()
+    check("Resumed a JAX-format checkpoint (train_ckpt.bin) at epoch 2" in out
+          and "source_format" not in new_meta
+          and new_meta["epoch"] == JAX_RUN_EPOCHS + 1
+          and new_meta["global_step"] == step + steps_per_epoch
+          and new_meta["lr_history"][:JAX_RUN_EPOCHS] == lr_history
+          and len(rows) == JAX_RUN_EPOCHS + 1
+          and [float(v) for v in rows[0][1:3]] == [train_losses[0], val_losses[0]]
+          and kept_sha == jax_sha,
+          f"--resume of the JAX run dir: epoch {new_meta['epoch']}, step "
+          f"{new_meta['global_step']}, the port's checkpoint landed, log rows 1-2 kept, "
+          f"{checkpoint.JAX_KEPT_FILE} byte-identical to the JAX generation")
+
+    best = os.path.join(run_dir, "best_model_onecycle.pth")
+    fused_input_block.launches = 0
+    rows, _ = run_cli(["-m", mixed_dir, "-s", source_dir, "-p", best, "-j", "8",
+                       "--batch_size", str(BATCH), "--device", "cuda", "-o", "single",
+                       "--output_base", os.path.join(root, "resume_jax_fast"), "--fast"])
+    launches = by_path["resume_jax_single"] = fused_input_block.launches
+    preds = np.array([float(r["Predicted_Label"]) for r in rows])
+    expect = math.ceil(N_PAIRS / BATCH)
+    check(launches == expect and len(rows) == N_PAIRS and np.isfinite(preds).all(),
+          f"resume_jax_single --fast on the resumed run's best model: K1 launched "
+          f"{launches} times (expected {expect}), {len(rows)} finite rows")
+    wall_phase = time.perf_counter() - t_phase
+    print(f"phase 14 (JAX run dir resumed on the card) wall: {wall_phase:.1f} s ({CARD})",
+          flush=True)
+    return {"checkpoint_mb": len(blob) / 1e6, "jax_load_s": load_s,
+            "jax_load_fresh_process_s": fresh_s, "epoch_s": epoch_s,
+            "epoch_tiles_per_s": tps, "cli_wall_s": wall, "phase_wall_s": wall_phase}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -2720,6 +3091,7 @@ def main() -> int:
         bench = phase_bench(stages["single"], by_path)
         probes = phase_probes(root, finals["single"], bench["result"]["int8_infer_tps"],
                               by_path)
+        jax_resume = phase_jax_resume(root, ckpts["single"], mixed_dir, source_dir, by_path)
     paths = ["eval_single", "eval_double", "serve_single_f32", "serve_single_f16",
              "serve_double", "predict_single", "predict_double",
              "eval_trained_single", "eval_trained_double",
@@ -2729,7 +3101,8 @@ def main() -> int:
              "eval_replicas_single", "dispatcher_eval_single", "doctor_single",
              "serve_bench_single", "unmix_demo_single", "bench_single", "bench_double",
              "bench_int8_single", "probe_int8_tier_single", "probe_int8_tier_double",
-             "probe_int8_tier_trained", "probe_two_branch_sol", "probe_two_branch_input"]
+             "probe_int8_tier_trained", "probe_two_branch_sol", "probe_two_branch_input",
+             "resume_jax_single"]
     check(sorted(by_path) == sorted(paths) and all(by_path[p] > 0 for p in paths),
           f"K1 launched on every path: {by_path}")
     print(json.dumps({"training": training}), flush=True)
@@ -2738,6 +3111,7 @@ def main() -> int:
     print(json.dumps({"host_tools": host_tools}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)
+    print(json.dumps({"jax_resume": jax_resume}), flush=True)
     print(f"chip_smoke.py wall: {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
 
     kernel = {

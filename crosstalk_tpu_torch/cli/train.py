@@ -23,7 +23,10 @@ rank of a cluster instead; there each process drives one device, so
 ``--num_devices``, when given, must equal ``--num_processes`` (the JAX
 package runs one process per host over all its chips). Ranks use NCCL on
 cards and Gloo on the CPU. Rank 0 owns stdout and the artifacts.
-``--profile DIR`` writes a ``torch.profiler`` trace of training;
+``--resume`` continues a run dir of either package: one the JAX package
+trained on a TPU resumes on the card with its Adam moments, step counts and
+schedule (io/checkpoint.py). ``--profile DIR`` writes a ``torch.profiler``
+trace of training;
 ``--debug_nans`` fails on the first NaN or Inf (utils/profiling.py).
 """
 
@@ -86,7 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output_base", type=str, default=".",
                         help="Where to create the training_run_* directory")
     parser.add_argument("--resume", type=str, default=None,
-                        help="Existing training_run_* directory to resume from")
+                        help="Existing training_run_* directory to resume from "
+                             "(one this package or the JAX package trained)")
     parser.add_argument("--num_devices", type=int, default=None,
                         help="Data-parallel device count: one rank per "
                              "device (default: every visible card; 1 with "

@@ -6,24 +6,38 @@ crosstalk_tpu/io/export.py).
 and the export below build on it.
 
 The artifact is the port's own: the JAX package's ``.ctkx`` holds StableHLO,
-which torch cannot load. ``export_serving_model`` traces the serving
-program once with ``torch.export`` (normalization included, a symbolic batch
-dimension by default, one static batch when pinned) and ``load_exported``
-runs it with torch alone, with no model code and no checkpoint at the
-deployment site:
+which torch cannot load. ``export_serving_programs`` traces the serving
+program with ``torch.export`` (normalization included, a symbolic batch
+dimension by default, one static batch when pinned) once for each device
+type asked for, as the JAX export lowers for several platforms, and
+``load_exported`` runs the one for its device with torch alone, with no
+model code and no checkpoint at the deployment site:
 
     python -m crosstalk_tpu_torch.tools.export_model -p model.pth --out m.ctkt
-    fn, meta = load_exported("m.ctkt"); alphas = fn(tiles)
+    fn, meta = load_exported("m.ctkt"); alphas = fn(tiles)   # on the card
+    fn, meta = load_exported("m.ctkt", device="cpu")         # on the CPU
 
-File format: the 8-byte magic, a u32 little-endian JSON length, the JSON
-metadata, a u64 little-endian weights length, the weights (``torch.save`` of
-the checkpoint's state_dict), then the program (``torch.export.save``). The
-weights travel as an ARGUMENT of the program, as in the JAX format, so the
-checkpoint's BN folds and the int8 tier's weight quantization run inside
-it; the calibrated int8 activation clips are constants of the program. The
+Each program is traced on its own device type and never moved to another:
+bf16 autocast and the ``is_cuda`` branches of the forwards differ between
+``cpu`` and ``cuda``. A ``cuda`` program is traced on a card: under fake
+CUDA tensors on a host without one, ``torch.export`` stops in the tensor
+ops that take a CUDA device guard (``contiguous``, indexing), so
+``export_serving_programs`` raises there rather than drop the platform.
+
+File format: the 8-byte magic ``CTKT0002``, a u32 little-endian JSON
+length, the JSON metadata, a u64 little-endian weights length, the weights
+(``torch.save`` of the checkpoint's state_dict, one section that every
+program shares), then the programs (``torch.export.save``) back to back in
+the order of ``meta["platforms"]``, each ``meta["program_bytes"][p]`` long.
+The weights travel as an ARGUMENT of the programs, as in the JAX format,
+so the checkpoint's BN folds and the int8 tier's weight quantization run
+inside them, and they are placed on the device once, at load; the
+calibrated int8 activation clips are constants of the programs. The
 metadata records the image size, the batch (``"dynamic"`` or an int), the
 tier (``path``: ``fast``, ``parity`` or ``int8``), the model, the device
-type the program was traced for and the sha256 of both sections.
+types and the sha256 of every section. ``CTKT0001`` files, the earlier
+one-program layout with its device type in ``meta["device"]``, still load;
+they are no longer written.
 
 The fused input-block kernel is deliberately NOT in exported programs, as
 the JAX export leaves its Pallas kernel out: the program must load with
@@ -48,7 +62,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-_MAGIC = b"CTKT0001"
+_MAGIC = b"CTKT0002"        # one program per device type
+_MAGIC_ONE = b"CTKT0001"    # one program, its type in meta["device"]; read only
+PLATFORMS = ("cuda", "cpu")
 BLOCK0_NOTE = ("bf16 conv path (the fused input-block kernel is left out of "
                "exported programs)")
 
@@ -169,14 +185,53 @@ def export_serving_model(
     return buf.getvalue(), wbuf.getvalue()
 
 
+def export_serving_programs(
+    state_dict,
+    model_cfg,
+    batch_size: Optional[int] = None,
+    image_size: int = 256,
+    fast: bool = True,
+    platforms=PLATFORMS,
+    int8_scales: Optional[Dict[str, float]] = None,
+) -> Tuple[Dict[str, bytes], bytes]:
+    """-> ({device type: program bytes}, weights bytes): one program per
+    entry of ``platforms`` (``'cuda'``, ``'cpu'``), each traced by
+    ``export_serving_model`` on its own device type, and the one weights
+    section they share. ``'cuda'`` on a host without a card raises before
+    anything is traced: a platform asked for is in the artifact or the
+    export fails."""
+    platforms = list(dict.fromkeys(platforms))
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if not platforms or unknown:
+        raise ValueError(f"platforms must be one or more of {list(PLATFORMS)}, "
+                         f"got {platforms}")
+    if "cuda" in platforms and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available on this host: a 'cuda' program is traced on "
+            "a card (torch.export cannot trace one without it); export with "
+            "platforms ['cpu'] (CLI: --platforms cpu) here")
+    programs, weights = {}, b""
+    for p in platforms:
+        programs[p], weights = export_serving_model(
+            state_dict, model_cfg, batch_size, image_size=image_size, fast=fast,
+            device=p, int8_scales=int8_scales)
+    return programs, weights
+
+
 def _sha256(b: bytes) -> str:
     return hashlib.sha256(b).hexdigest()
 
 
-def save_exported(path: str, program: bytes, weights: bytes, meta: Dict) -> None:
-    """Write the artifact; ``meta`` gains the sections' sha256 digests."""
-    payload = json.dumps({**meta, "sha256": {"program": _sha256(program),
-                                             "weights": _sha256(weights)}}).encode()
+def save_exported(path: str, programs: Dict[str, bytes], weights: bytes, meta: Dict) -> None:
+    """Write the artifact in the ``CTKT0002`` layout. ``programs`` is
+    ``{device type: program bytes}``; ``meta`` gains ``platforms``,
+    ``program_bytes`` and the sections' sha256 digests."""
+    order = list(programs)
+    meta = {**meta, "platforms": order,
+            "program_bytes": {p: len(programs[p]) for p in order},
+            "sha256": {"weights": _sha256(weights),
+                       "programs": {p: _sha256(programs[p]) for p in order}}}
+    payload = json.dumps(meta).encode()
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(_MAGIC)
@@ -184,17 +239,27 @@ def save_exported(path: str, program: bytes, weights: bytes, meta: Dict) -> None
         f.write(payload)
         f.write(struct.pack("<Q", len(weights)))
         f.write(weights)
-        f.write(program)
+        for p in order:
+            f.write(programs[p])
     os.replace(tmp, path)  # atomic: no truncated artifact at the final path
 
 
-def read_exported(path: str) -> Tuple[bytes, bytes, Dict]:
-    """-> (program bytes, weights bytes, metadata). Raises ValueError on a
-    bad file: wrong magic, truncation, corrupt metadata or a section whose
-    digest does not match."""
+def default_device(platforms) -> str:
+    """The device type an artifact of ``platforms`` runs on when none is
+    named: the card when it holds a ``cuda`` program, else its one type."""
+    return "cuda" if "cuda" in platforms else platforms[0]
+
+
+def read_exported(path: str, device: Optional[str] = None) -> Tuple[bytes, bytes, Dict]:
+    """-> (the program for ``device`` (default: ``default_device``'s),
+    weights bytes, metadata). ``meta["platforms"]`` lists the file's device
+    types in either layout. Raises ValueError on a bad file (wrong magic,
+    truncation, corrupt metadata, a section whose digest does not match)
+    and on a device type the file holds no program for, naming the ones it
+    holds."""
     with open(path, "rb") as f:
         magic = f.read(8)
-        if magic != _MAGIC:
+        if magic not in (_MAGIC, _MAGIC_ONE):
             raise ValueError(f"{path}: not a crosstalk torch export (magic {magic!r})")
         header = f.read(4)
         if len(header) < 4:
@@ -206,8 +271,16 @@ def read_exported(path: str) -> Tuple[bytes, bytes, Dict]:
         try:
             meta = json.loads(payload.decode())
             digests = meta["sha256"]
-        except (UnicodeDecodeError, json.JSONDecodeError, KeyError, TypeError) as e:
+            if magic == _MAGIC:
+                sizes = [(p, int(meta["program_bytes"][p])) for p in meta["platforms"]]
+                program_digests = digests["programs"]
+            else:
+                sizes = [(meta["device"], None)]
+                program_digests = {meta["device"]: digests["program"]}
+        except (UnicodeDecodeError, json.JSONDecodeError, KeyError, TypeError,
+                ValueError) as e:
             raise ValueError(f"{path}: corrupt export metadata: {e}")
+        meta["platforms"] = [p for p, _ in sizes]
         wheader = f.read(8)
         if len(wheader) < 8:
             raise ValueError(f"{path}: truncated weights header")
@@ -215,31 +288,40 @@ def read_exported(path: str) -> Tuple[bytes, bytes, Dict]:
         weights = f.read(wn)
         if len(weights) < wn:
             raise ValueError(f"{path}: truncated weights section")
-        program = f.read()
-    if not program:
-        raise ValueError(f"{path}: export contains no program")
-    for name, section in (("weights", weights), ("program", program)):
-        if _sha256(section) != digests.get(name):
-            raise ValueError(f"{path}: corrupt {name} section (sha256 mismatch)")
-    return program, weights, meta
+        programs = {}
+        for p, size in sizes:
+            section = f.read() if size is None else f.read(size)
+            if not section or (size is not None and len(section) < size):
+                raise ValueError(f"{path}: export contains no complete {p} program")
+            programs[p] = section
+        if f.read(1):
+            raise ValueError(f"{path}: trailing bytes after the programs")
+    if _sha256(weights) != digests.get("weights"):
+        raise ValueError(f"{path}: corrupt weights section (sha256 mismatch)")
+    for p, section in programs.items():
+        if _sha256(section) != program_digests.get(p):
+            raise ValueError(f"{path}: corrupt {p} program section (sha256 mismatch)")
+    want = default_device(meta["platforms"]) if device is None else str(device)
+    if want not in programs:
+        held = ", ".join(repr(p) for p in programs)
+        raise ValueError(f"{path}: exported for device type {held}, not {want!r}; "
+                         f"export it again with {want!r} among its platforms")
+    return programs[want], weights, meta
 
 
 def load_exported(path: str, device: Optional[str] = None):
     """-> (fn(raw (B, H, W, 2) numpy or tensor) -> (B,) float32 numpy,
     metadata dict).
 
-    Needs torch alone. The program runs on the device type it was traced
-    for; ``device`` names it (default: the artifact's), and another type
-    raises ValueError, as does a CUDA artifact on a host without a card: an
-    artifact is never moved silently. The weights are placed once, here.
-    ``fn.forward`` is the program on device tensors (raw -> (B,) tensor),
-    for callers that keep the batch on the card."""
-    program, weights, meta = read_exported(path)
-    traced_for = meta.get("device")
-    want = traced_for if device is None else str(device)
-    if want != traced_for:
-        raise ValueError(f"{path}: exported for device type {traced_for!r}, not "
-                         f"{want!r}; export it again for {want!r}")
+    Needs torch alone. ``device`` picks the program by device type
+    (default: the card when the artifact holds a ``cuda`` program, else its
+    one type); a type the artifact lacks raises ValueError naming the ones
+    it holds, as does a ``cuda`` program on a host without a card: a
+    program is never moved to another type. The weights are placed once,
+    here. ``fn.forward`` is the program on device tensors (raw -> (B,)
+    tensor), for callers that keep the batch on the card."""
+    program, weights, meta = read_exported(path, device)
+    want = default_device(meta["platforms"]) if device is None else str(device)
     if want == "cuda" and not torch.cuda.is_available():
         raise ValueError(f"{path}: exported for 'cuda' and this host has no usable "
                          "CUDA card")

@@ -8,7 +8,10 @@ loads and saves natively. What stays here:
   * ``from_jax_variables``: the JAX package's flax variables tree (as numpy
     arrays) -> a torch state_dict. It is the port's own copy of the JAX
     package's ``flax_to_torch`` mapping, used to feed the same weights to
-    both packages.
+    both packages;
+  * ``from_jax_train_state``: the JAX package's whole train state (params,
+    batch_stats, the optax Adam state, the step), as ``io/flax_msgpack``
+    decodes it -> the port's resume-checkpoint payload.
 
 torch state_dict key schema:
   single: conv_layers.{4k}.{weight,bias}  (Conv2d, k-th block)
@@ -204,6 +207,8 @@ def _get(tree: dict, path: tuple) -> np.ndarray:
     node = tree
     for key in path:
         node = node[key]
+    if isinstance(node, torch.Tensor):  # a bf16 leaf (io/flax_msgpack)
+        return node.float().numpy()
     return np.asarray(node, dtype=np.float32)
 
 
@@ -252,3 +257,73 @@ def from_jax_variables(variables: dict, variant: str) -> StateDict:
     sd[f"{head}.9.weight"] = _get(params, ("Dense_0", "kernel")).T
     sd[f"{head}.9.bias"] = _get(params, ("Dense_0", "bias"))
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _leaf_count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaf_count(v) for v in tree.values())
+    return 1
+
+
+_TRAIN_STATE_KEYS = {"params", "batch_stats", "opt_state", "step"}
+_ADAM_KEYS = {"count", "mu", "nu"}
+
+
+def from_jax_train_state(tree: dict, variant: str) -> dict:
+    """The JAX package's ``TrainState`` state dict (``{'params',
+    'batch_stats', 'opt_state', 'step'}``, numpy leaves) -> the payload
+    ``io.checkpoint.state_payload`` builds, without its ``'rng'``: ``{'model':
+    state_dict, 'optimizer': torch Adam state_dict, 'step': int}``. The JAX
+    key does not carry over (the two packages' random streams differ by
+    design) and a resume reads no ``'rng'``: the loop's next checkpoint
+    writes its own seed.
+
+    The optax state is ``(add_decayed_weights, scale_by_adam)``'s, ``{'0':
+    {}, '1': {'count', 'mu', 'nu'}}`` (crosstalk_tpu/train/steps.py:44-52).
+    ``mu`` and ``nu`` have the params' tree and take the same layout
+    conversion, a permutation of elements, so the moments move exactly;
+    they become Adam's ``exp_avg`` / ``exp_avg_sq`` in the order of the
+    model's parameters, and ``count`` each parameter's ``step``, a host
+    tensor as torch keeps it. Adam's hyperparameters are ``OptimConfig``'s
+    defaults, the ones both packages train with (the learning rate is set
+    before every step). A tree of another shape raises ValueError: it is
+    never taken for a fresh state."""
+    from crosstalk_tpu_torch.config import OptimConfig
+    from crosstalk_tpu_torch.models.registry import build_model
+    from crosstalk_tpu_torch.train.steps import make_optimizer
+
+    if not isinstance(tree, dict) or set(tree) != _TRAIN_STATE_KEYS:
+        raise ValueError(f"not a crosstalk_tpu TrainState: top-level keys "
+                         f"{sorted(tree) if isinstance(tree, dict) else type(tree)}, "
+                         f"expected {sorted(_TRAIN_STATE_KEYS)}")
+    opt = tree["opt_state"]
+    if (not isinstance(opt, dict) or set(opt) != {"0", "1"} or opt["0"] != {}
+            or not isinstance(opt["1"], dict) or set(opt["1"]) != _ADAM_KEYS):
+        raise ValueError("not the optax state of crosstalk_tpu.train.steps."
+                         "make_optimizer (add_decayed_weights, scale_by_adam): "
+                         f"{opt if not isinstance(opt, dict) else sorted(opt)}")
+    adam = opt["1"]
+    try:
+        sd = from_jax_variables(
+            {"params": tree["params"], "batch_stats": tree["batch_stats"]}, variant)
+        moments = [from_jax_variables({"params": adam[k], "batch_stats": tree["batch_stats"]},
+                                      variant) for k in ("mu", "nu")]
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"JAX train state of an unknown {variant} tree: {e}") from None
+    model = build_model(model_config_for_checkpoint(variant, sd),
+                        image_size=infer_image_size(sd, variant), device="meta")
+    names = [n for n, _ in model.named_parameters()]
+    buffers = [n for n, _ in model.named_buffers() if not n.endswith("num_batches_tracked")]
+    for subtree, want, what in ((tree["params"], names, "params"),
+                                (tree["batch_stats"], buffers, "batch_stats"),
+                                (adam["mu"], names, "mu"), (adam["nu"], names, "nu")):
+        if _leaf_count(subtree) != len(want):
+            raise ValueError(f"JAX {what} tree has {_leaf_count(subtree)} leaves, the "
+                             f"{variant} model {len(want)}: an unknown tree")
+    count = torch.tensor(float(np.asarray(adam["count"])))
+    optimizer = make_optimizer(model.parameters(), OptimConfig()).state_dict()
+    optimizer["state"] = {
+        i: {"step": count.clone(), "exp_avg": moments[0][n], "exp_avg_sq": moments[1][n]}
+        for i, n in enumerate(names)
+    }
+    return {"model": sd, "optimizer": optimizer, "step": int(np.asarray(tree["step"]))}

@@ -2,16 +2,22 @@
 tools/export_model.py).
 
     python -m crosstalk_tpu_torch.tools.export_model -p model.pth [-o single]
-        [--out model.ctkt] [--batch_size 256] [--device cuda|cpu] [--parity]
+        [--out model.ctkt] [--batch_size 256] [--platforms cuda cpu] [--parity]
         [--quantize int8 --calibration_mixed_dir M --calibration_source_dir S]
 
-The artifact (``io/export.py`` format) carries the ``torch.export`` program,
-the weights and the normalization, with a symbolic batch dimension by
-default (``--batch_size`` pins one static shape), traced on ``--device``
-(default the CUDA card); it loads with torch alone:
+The artifact (``io/export.py`` format) carries one ``torch.export`` program
+per device type of ``--platforms`` (default ``cuda cpu``, as the JAX tool
+lowers for ``tpu cpu``), each traced on its own type, with one shared
+weights section and the normalization, and a symbolic batch dimension by
+default (``--batch_size`` pins one static shape). ``--device X`` is the
+one-platform spelling, ``--platforms X``. A ``cuda`` program is traced on a
+card: without one, asking for ``cuda`` raises. The int8 tier's clips are
+calibrated once, on the card when ``cuda`` is among the platforms, and
+shared by the programs. It loads with torch alone:
 
     from crosstalk_tpu_torch.io.export import load_exported
-    fn, meta = load_exported("model.ctkt")
+    fn, meta = load_exported("model.ctkt")                # the card's program
+    fn, meta = load_exported("model.ctkt", device="cpu")  # the CPU's
     alphas = fn(tiles)          # (batch, 256, 256, 2) float32 -> (batch,)
 """
 
@@ -42,9 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--image_size", type=int, default=None,
                     help="Tile height/width (default: auto-detected from "
                          "the checkpoint's head dimensions)")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="Device type to trace the program for (default: "
-                         "the CUDA card); the artifact loads on that type only")
+    ap.add_argument("--platforms", nargs="+", default=None, choices=["cuda", "cpu"],
+                    help="Device types to trace a program for (default: "
+                         "cuda cpu); the artifact loads on each of them")
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="One device type to trace for: --device X is "
+                         "--platforms X")
     ap.add_argument("--parity", action="store_true",
                     help="Export the f32 parity forward instead of the "
                          "bf16 serving path")
@@ -91,6 +100,9 @@ def _check_flags(args):
         return "Error: --calibration_* dirs only apply with --quantize int8."
     if args.num_conv_blocks is not None and args.model_options == "double":
         return "Error: --num_conv_blocks applies to the single-branch model only."
+    if args.device is not None and args.platforms not in (None, [args.device]):
+        return (f"Error: --device {args.device} is --platforms {args.device}; it "
+                f"conflicts with --platforms {' '.join(args.platforms)}.")
     return None
 
 
@@ -103,7 +115,13 @@ def main(argv=None) -> int:
 
     from crosstalk_tpu_torch.config import ModelConfig
     from crosstalk_tpu_torch.device import resolve_device
-    from crosstalk_tpu_torch.io.export import BLOCK0_NOTE, export_serving_model, save_exported
+    from crosstalk_tpu_torch.io.export import (
+        BLOCK0_NOTE,
+        PLATFORMS,
+        default_device,
+        export_serving_programs,
+        save_exported,
+    )
     from crosstalk_tpu_torch.io.torch_convert import (
         compatible_px_range,
         image_size_compatible,
@@ -113,7 +131,12 @@ def main(argv=None) -> int:
         model_config_for_checkpoint,
     )
 
-    device = resolve_device(args.device)  # raises when CUDA is missing
+    platforms = args.platforms or ([args.device] if args.device else list(PLATFORMS))
+    for p in platforms:
+        resolve_device(p)  # raises when CUDA is missing
+    # the int8 clips are calibrated once, on the device the artifact serves on
+    # by default, and shared by the programs
+    device = resolve_device(default_device(platforms))
     variant = args.model_options
     compute_dtype = "f32" if args.parity else "bf16"
     try:
@@ -162,18 +185,18 @@ def main(argv=None) -> int:
 
     path = "parity" if args.parity else args.quantize or "fast"
     batch = "dynamic" if args.batch_size is None else args.batch_size
-    print(f"Exporting for {device.type} (batch {batch}, {image_size}px, {path} path)...")
-    program, weights = export_serving_model(
+    print(f"Exporting for {', '.join(platforms)} (batch {batch}, {image_size}px, "
+          f"{path} path)...")
+    programs, weights = export_serving_programs(
         state_dict, cfg, args.batch_size, image_size=image_size,
-        fast=not args.parity, device=device.type, int8_scales=int8_scales)
+        fast=not args.parity, platforms=platforms, int8_scales=int8_scales)
     out = args.out or args.model_path + ".ctkt"
-    save_exported(out, program, weights, {
+    save_exported(out, programs, weights, {
         "model_options": variant,
         **infer_model_size(state_dict, variant),
         "checkpoint": os.path.basename(args.model_path),
         "batch_size": batch,
         "image_size": image_size,
-        "device": device.type,
         "path": path,
         "block0": BLOCK0_NOTE,
         **extra,

@@ -14,7 +14,10 @@ Divergences from the reference, shared with the JAX package:
     checkpoint is written (io/checkpoint.py), asynchronously: the state is
     cloned on the device and a background thread copies and writes it while
     the next epoch trains; everything is durable before ``train_model``
-    returns.
+    returns;
+  * ``resume`` also continues a run dir the JAX package trained: its state
+    converts on load, and the JAX generation read is kept beside the port's
+    checkpoints (``checkpoint.keep_jax_generation``).
 
 Under a process group (crosstalk_tpu/train/loop.py:125-148, :154, :165-187,
 :213-223) every rank runs this loop on its own rows of each batch; the
@@ -178,6 +181,14 @@ def train_model(
         schedule.load_state_dict(meta["schedule"])
         if primary:
             print(f"Resumed from epoch {start_epoch} (best val {best_val_loss:.6f})")
+            if "source_format" in meta:  # read from the JAX package's files
+                kept = checkpoint.keep_jax_generation(run_dir, meta)
+                print(f"Resumed a JAX-format checkpoint ({meta['source_file']}) at "
+                      f"epoch {start_epoch}, step {state.step}: parameters, BatchNorm "
+                      "statistics, Adam moments and step counts carried over; flips "
+                      "and dropout draw from this package's random streams from here "
+                      "on. Checkpoints are written in this package's format"
+                      + (f"; the JAX generation is kept as {kept}" if kept else ""))
 
     log = artifacts.TrainingLog(
         run_dir, ts, naming_bs, optim_cfg.learning_rate,

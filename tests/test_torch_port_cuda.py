@@ -425,7 +425,7 @@ def test_cuda_artifact_exported_and_loaded_on_the_card(cuda_device, tmp_path, ti
     program, weights = export_serving_model(sd, cfg, None, image_size=32, device="cuda",
                                             int8_scales=scales)
     path = str(tmp_path / "m.ctkt")
-    save_exported(path, program, weights, {"device": "cuda", "batch_size": "dynamic"})
+    save_exported(path, {"cuda": program}, weights, {"batch_size": "dynamic"})
     fn, _ = load_exported(path)
     live = make_forward(cfg, sd, device="cuda", use_kernel=False, int8_scales=scales)
     with torch.inference_mode():
@@ -433,6 +433,36 @@ def test_cuda_artifact_exported_and_loaded_on_the_card(cuda_device, tmp_path, ti
     np.testing.assert_allclose(fn(raw), want, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="exported for device type 'cuda'"):
         load_exported(path, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["single", "double"])
+def test_cuda_two_platform_artifact_runs_on_each_device_type(cuda_device, tmp_path, variant):
+    """``platforms=('cuda', 'cpu')``: one file, each program traced on its
+    own device type, each against the live forward of its device without
+    the kernel within 1e-6; the card's program is the default."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.io.export import (
+        export_serving_programs,
+        load_exported,
+        make_forward,
+        save_exported,
+    )
+
+    cfg, sd = _small_checkpoint(variant)
+    programs, weights = export_serving_programs(sd, cfg, image_size=32,
+                                                platforms=("cuda", "cpu"))
+    path = str(tmp_path / "m.ctkt")
+    save_exported(path, programs, weights, {"batch_size": "dynamic"})
+    raw = _raw_tiles(5, seed=6)
+    for device in (None, "cuda", "cpu"):
+        fn, meta = load_exported(path, device=device)
+        live = make_forward(cfg, sd, device=device or "cuda", use_kernel=False)
+        with torch.inference_mode():
+            want = live(torch.from_numpy(raw).to(device or "cuda")).cpu().numpy()
+        np.testing.assert_allclose(fn(raw), want, rtol=0, atol=1e-6)
+    assert meta["platforms"] == ["cuda", "cpu"]
 
 
 # --- data parallel on the card ----------------------------------------------

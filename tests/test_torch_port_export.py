@@ -6,7 +6,10 @@ same tier with ``use_kernel=False`` (the route exported programs take: block
 symbolic and a pinned batch. Measured: 0 in every case. The export CLI, the
 artifact-backed server (in process and as a subprocess) and ``predict
 --artifact`` are driven end to end; the JAX export tool rejects the same
-flag combinations.
+flag combinations. A ``--platforms cpu`` artifact is held against the JAX
+export's cpu program within the ``--fast`` envelope; a file with several
+programs selects one by device type, and a file of the one-program layout
+still loads.
 """
 
 import glob
@@ -27,6 +30,7 @@ from crosstalk_tpu_torch.config import ModelConfig
 from crosstalk_tpu_torch.eval.int8_forward import calibrate_int8
 from crosstalk_tpu_torch.io.export import (
     export_serving_model,
+    export_serving_programs,
     load_exported,
     make_forward,
     read_exported,
@@ -84,10 +88,10 @@ def test_export_roundtrip_matches_live_model(setup, tmp_path, variant, tier, bat
                                             fast=tier != "parity", device="cpu",
                                             int8_scales=scales)
     path = str(tmp_path / "m.ctkt")
-    save_exported(path, program, weights, {"device": "cpu", "batch_size": batch or "dynamic"})
+    save_exported(path, {"cpu": program}, weights, {"batch_size": batch or "dynamic"})
     fn, meta = load_exported(path)
     assert meta["batch_size"] == (batch or "dynamic") and set(meta["sha256"]) == {
-        "program", "weights"}
+        "programs", "weights"}
     live = make_forward(cfg, sd, fast=tier != "parity", image_size=PX, device="cpu",
                         use_kernel=False, int8_scales=scales)
     for n in ((4,) if batch else (1, 3, 4)):
@@ -143,9 +147,9 @@ def test_export_runs_on_the_device_type_it_was_traced_for(artifact, tmp_path):
     with pytest.raises(ValueError, match="exported for device type 'cpu'"):
         load_exported(artifact, device="cuda")
     program, weights, meta = read_exported(artifact)
-    meta = {k: v for k, v in meta.items() if k != "sha256"}
+    meta = {k: v for k, v in meta.items() if k not in ("sha256", "platforms", "program_bytes")}
     cuda = str(tmp_path / "cuda.ctkt")
-    save_exported(cuda, program, weights, {**meta, "device": "cuda"})
+    save_exported(cuda, {"cuda": program}, weights, meta)
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="no usable CUDA card"):
             load_exported(cuda)
@@ -198,10 +202,11 @@ def test_export_cli_int8_and_meta(setup, tmp_path, capsys):
     scales = calibrate_int8(cfg, sd, load_calibration_tiles(mixed, source, PX, 4),
                             use_kernel=False)
     assert meta["int8_scales"] == scales
-    assert {k: meta[k] for k in ("model_options", "batch_size", "image_size", "device",
+    assert {k: meta[k] for k in ("model_options", "batch_size", "image_size", "platforms",
                                  "path", "calibration_tiles")} == {
-        "model_options": "single", "batch_size": 2, "image_size": PX, "device": "cpu",
+        "model_options": "single", "batch_size": 2, "image_size": PX, "platforms": ["cpu"],
         "path": "int8", "calibration_tiles": 4}
+    assert "device" not in meta
     assert "kernel is left out" in meta["block0"]
     raw = _raw(2)
     with torch.no_grad():
@@ -431,3 +436,158 @@ def test_int8_and_artifact_entry_points_raise_without_a_card(setup, artifact, tm
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
     assert not list(tmp_path.glob("predict_run_*"))
+
+
+# --- one artifact, a program per device type --------------------------------
+
+@pytest.mark.parametrize("variant", ["single", "double"])
+def test_platforms_cpu_artifact_matches_the_jax_cpu_export(setup, tmp_path, variant):
+    """``--platforms cpu`` against the JAX export's cpu program on the same
+    weights and tiles, within the ``--fast`` envelope (5e-4: the port's and
+    JAX's bf16 forwards, tests/test_torch_port_fast_forward.py)."""
+    import crosstalk_tpu.config as jcfg
+    from crosstalk_tpu.io import export as jexport
+    from crosstalk_tpu.io.torch_convert import load_pth as jax_load_pth
+
+    _, ckpts, _, _ = setup
+    out = str(tmp_path / "m.ctkt")
+    flags = ["-o", variant] if variant == "double" else []
+    assert export_main(["-p", ckpts[variant], "--platforms", "cpu", "--out", out, *flags]) == 0
+    fn, meta = load_exported(out)
+    assert meta["platforms"] == ["cpu"] and "device" not in meta
+    assert open(out, "rb").read(8) == b"CTKT0002"
+
+    variables = jax_load_pth(ckpts[variant], variant)
+    blob, weights = jexport.export_serving_model(
+        variables, jcfg.ModelConfig(variant=variant, **KW[variant]), image_size=PX,
+        platforms=("cpu",))
+    jpath = str(tmp_path / "m.ctkx")
+    jexport.save_exported(jpath, blob, weights, {"platforms": ["cpu"]})
+    jfn, _ = jexport.load_exported(jpath)
+    raw = _raw(5, 21)
+    np.testing.assert_allclose(fn(raw), np.asarray(jfn(raw)), rtol=0, atol=5e-4)
+
+
+@pytest.fixture(scope="module")
+def two_programs(setup):
+    """A CTKT0002 file whose 'cuda' section holds the cpu program of another
+    checkpoint (no card here to trace a cuda one): which program a device
+    type selects is then visible in the alphas."""
+    root, ckpts, _, _ = setup
+    cfg = _cfg("single", "fast")
+    prog = {}
+    for name in ("single_b", "single"):  # the weights section: "single"'s
+        sd = torch.load(ckpts[name], weights_only=True)
+        prog[name], weights = export_serving_model(sd, cfg, None, image_size=PX, device="cpu")
+    path = str(root / "two.ctkt")
+    save_exported(path, {"cuda": prog["single_b"], "cpu": prog["single"]}, weights,
+                  {"batch_size": "dynamic", "image_size": PX, "path": "fast"})
+    return path, prog
+
+
+def test_two_program_file_selects_the_program_by_device_type(two_programs, artifact):
+    path, prog = two_programs
+    assert open(path, "rb").read(8) == b"CTKT0002"
+    for device, name in (("cuda", "single_b"), ("cpu", "single")):
+        program, _, meta = read_exported(path, device)
+        assert program == prog[name]
+    assert meta["platforms"] == ["cuda", "cpu"]
+    assert set(meta["sha256"]) == {"weights", "programs"}
+    fn, _ = load_exported(path, device="cpu")
+    one, _ = load_exported(artifact)  # the single-branch checkpoint's cpu export
+    raw = _raw(4, 8)
+    np.testing.assert_allclose(fn(raw), one(raw), rtol=0, atol=1e-6)
+    if not torch.cuda.is_available():  # the card is the default type
+        with pytest.raises(ValueError, match="no usable CUDA card"):
+            load_exported(path)
+
+
+def test_missing_device_type_raises_naming_the_types_held(two_programs, artifact, tmp_path):
+    with pytest.raises(ValueError, match=r"exported for device type 'cpu', not 'cuda'"):
+        load_exported(artifact, device="cuda")
+    _, prog = two_programs
+    only_cuda = str(tmp_path / "cuda_only.ctkt")
+    save_exported(only_cuda, {"cuda": prog["single"]}, b"w", {})
+    with pytest.raises(ValueError, match=r"exported for device type 'cuda', not 'cpu'"):
+        load_exported(only_cuda, device="cpu")
+    with pytest.raises(ValueError, match="export it again"):
+        read_exported(only_cuda, "cpu")
+
+
+def test_one_program_file_of_the_earlier_layout_still_loads(setup, artifact, tmp_path):
+    """The CTKT0001 layout (one program, its type in ``meta['device']``),
+    built here byte by byte: the reader is held against bytes its own
+    writer, which writes CTKT0002 only, did not make."""
+    import hashlib
+    import struct
+
+    program, weights, _ = read_exported(artifact, "cpu")
+    meta = json.dumps({"device": "cpu", "batch_size": "dynamic", "image_size": PX,
+                       "path": "fast",
+                       "sha256": {"program": hashlib.sha256(program).hexdigest(),
+                                  "weights": hashlib.sha256(weights).hexdigest()}}).encode()
+    old = str(tmp_path / "old.ctkt")
+    with open(old, "wb") as f:
+        f.write(b"CTKT0001" + struct.pack("<I", len(meta)) + meta
+                + struct.pack("<Q", len(weights)) + weights + program)
+    fn, old_meta = load_exported(old)
+    assert old_meta["platforms"] == ["cpu"] and set(old_meta["sha256"]) == {"program", "weights"}
+    new_fn, _ = load_exported(artifact)
+    raw = _raw(3, 2)
+    np.testing.assert_array_equal(fn(raw), new_fn(raw))
+
+
+def test_predict_and_serve_pick_the_cpu_program_of_a_two_program_file(setup, two_programs,
+                                                                      tmp_path):
+    from crosstalk_tpu_torch.cli.predict import main as predict
+    from crosstalk_tpu_torch.cli.serve import build_parser, build_server
+    from crosstalk_tpu_torch.serve.client import CrosstalkClient
+
+    _, _, mixed, source = setup
+    path, _ = two_programs
+    out = str(tmp_path / "p")
+    assert predict(["-m", mixed, "-s", source, "--artifact", path, "--device", "cpu",
+                    "-b", "4", "--output_base", out]) == 0
+    (csv_path,) = glob.glob(os.path.join(out, "predict_run_*", "predictions_*.csv"))
+    fn, _ = load_exported(path, device="cpu")
+    with open(csv_path) as f:
+        got = np.array([float(line.split(",")[3]) for line in f.read().splitlines()[1:]])
+    from crosstalk_tpu_torch.data.index import pair_unlabeled
+    from crosstalk_tpu_torch.data.pipeline import load_tiles
+
+    want = fn(load_tiles(pair_unlabeled(mixed, source).samples))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+    server, info = build_server(build_parser().parse_args(
+        ["--artifact", path, "--device", "cpu", "--port", "0", "--batch_size", "4",
+         "--max_delay_ms", "2"]))
+    try:
+        server.start_background()
+        raw = _raw(5, 9)
+        served = CrosstalkClient("http://%s:%d" % server.address).predict(raw)
+    finally:
+        server.shutdown()
+    np.testing.assert_allclose(served, fn(raw), rtol=0, atol=1e-6)
+
+
+def test_export_cli_platforms_flag(setup, tmp_path, capsys, monkeypatch):
+    _, ckpts, _, _ = setup
+    both = str(tmp_path / "both.ctkt")
+    assert export_main(["-p", ckpts["single"], "--device", "cpu", "--platforms", "cuda", "cpu",
+                        "--out", both]) == 1
+    assert "conflicts with --platforms cuda cpu" in capsys.readouterr().out
+    assert export_main(["-p", ckpts["single"], "--device", "cpu", "--platforms", "cpu",
+                        "--out", both]) == 0
+    assert read_exported(both)[2]["platforms"] == ["cpu"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--platforms", "cuda", "cpu"], ["--platforms", "cpu", "cuda"], []):
+        out = str(tmp_path / "never.ctkt")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            export_main(["-p", ckpts["single"], "--out", out, *argv])
+        assert not os.path.exists(out)
+    sd = torch.load(ckpts["single"], weights_only=True)
+    with pytest.raises(RuntimeError, match="traced on a card"):
+        export_serving_programs(sd, _cfg("single", "fast"), image_size=PX,
+                                platforms=("cpu", "cuda"))
+    with pytest.raises(ValueError, match="one or more of"):
+        export_serving_programs(sd, _cfg("single", "fast"), image_size=PX, platforms=("tpu",))

@@ -1,5 +1,7 @@
 """Package hygiene of the PyTorch port: it imports nothing of JAX or of the
-JAX package, and its entry points refuse to fall back to the CPU."""
+JAX package, nor the ``msgpack`` package (the card's host has none; the
+port reads flax msgpack files with its own decoder), and its entry points
+refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -15,7 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "crosstalk_tpu_torch"
 # `crosstalk_tpu_torch` starts with `crosstalk_tpu`: the JAX package is
 # `crosstalk_tpu` followed by a dot or the end of the name
-FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|crosstalk_tpu)(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|msgpack|crosstalk_tpu)(\.|$)")
 
 
 def _module_names():
@@ -35,7 +37,10 @@ def _module_names():
     ("jax.numpy", True),
     ("flax", True),
     ("optax", True),
+    ("msgpack", True),
+    ("msgpack.fallback", True),
     ("crosstalk_tpu_torch", False),
+    ("crosstalk_tpu_torch.io.flax_msgpack", False),
     ("crosstalk_tpu_torch.ops.input_block", False),
     ("jaxtyping", False),
 ])
