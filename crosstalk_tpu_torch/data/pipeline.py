@@ -35,6 +35,7 @@ import torch
 
 from crosstalk_tpu_torch.data.index import Sample
 from crosstalk_tpu_torch.data.tiff import read_tile
+from crosstalk_tpu_torch.utils.profiling import span
 
 
 class Batch(NamedTuple):
@@ -208,32 +209,44 @@ def iterate_batches(
     mask), so a rank copies and uploads only its own rows. The JAX package
     keeps full-size host buffers with the other rows zeroed and assembles a
     global array; here each rank steps on its rows alone.
+
+    Span ``crosstalk.pipeline.assemble`` (``utils/profiling.span``, twinned
+    in the profiler's timeline; attributes ``batch``, ``rows``, ``bytes``):
+    one per batch, from the index cut to the ``Batch`` handed out: the mask,
+    the ``np.empty`` of the inputs, the sort and the row copies this thread
+    waits on. The consumer's work between batches is outside it.
     """
     pool = (
         cf.ThreadPoolExecutor(assembly_threads)
         if assembly_threads > 1 else None
     )
     rows = slice(None) if assemble_rows is None else assemble_rows
+    row_shape = store.tiles.shape[1:]
+    row_bytes = int(np.prod(row_shape)) * 4
     try:
-        for idx, real in _epoch_index_batches(
+        for k, (idx, real) in enumerate(_epoch_index_batches(
             len(store), batch_size, shuffle, drop_last, seed, epoch
-        ):
-            mask = np.zeros(batch_size, dtype=np.float32)
-            mask[:real] = 1.0
-            idx, mask = idx[rows], mask[rows]
-            inputs = np.empty((len(idx), *store.tiles.shape[1:]), np.float32)
-            src_sorted = np.argsort(idx, kind="stable")
+        )):
+            idx = idx[rows]
+            with span("crosstalk.pipeline.assemble", host_only=True, batch=k,
+                      rows=len(idx), bytes=len(idx) * row_bytes):
+                mask = np.zeros(batch_size, dtype=np.float32)
+                mask[:real] = 1.0
+                mask = mask[rows]
+                inputs = np.empty((len(idx), *row_shape), np.float32)
+                src_sorted = np.argsort(idx, kind="stable")
 
-            def copy_rows(dsts):
-                for j in dsts:
-                    inputs[j] = store.tiles[idx[j]]
+                def copy_rows(dsts):
+                    for j in dsts:
+                        inputs[j] = store.tiles[idx[j]]
 
-            if pool is None:
-                copy_rows(src_sorted)
-            else:
-                chunks = np.array_split(src_sorted, assembly_threads)
-                list(pool.map(copy_rows, chunks))
-            yield Batch(inputs, store.labels[idx], store.ids[idx], mask)
+                if pool is None:
+                    copy_rows(src_sorted)
+                else:
+                    chunks = np.array_split(src_sorted, assembly_threads)
+                    list(pool.map(copy_rows, chunks))
+                batch = Batch(inputs, store.labels[idx], store.ids[idx], mask)
+            yield batch
     finally:
         if pool is not None:
             pool.shutdown(wait=False)
@@ -254,18 +267,27 @@ def device_batches(batches: Iterator[Batch], device: torch.device) -> Iterator[B
     ``non_blocking=True``, so the host returns before the copy ends and can
     assemble the next batch. The copies run in order with the compute on
     the current stream. PyTorch's pinned-memory allocator holds each pinned
-    buffer until the copy that reads it has completed."""
+    buffer until the copy that reads it has completed.
+
+    Span ``crosstalk.pipeline.stage`` (twinned in the profiler's timeline;
+    attributes ``batch``, ``bytes``): one per batch, the ``from_numpy`` and
+    the copy into pinned memory of inputs, labels and mask. The enqueue of
+    the copies to the device (``.to``) is outside it: a range that launches
+    a copy would count as device activity in the profiler's timeline."""
     pin = device.type == "cuda"
 
-    def put(a: np.ndarray) -> torch.Tensor:
+    def stage(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=pin)
+        return t.pin_memory() if pin else t
 
     queue: collections.deque = collections.deque()
-    for b in batches:
-        queue.append(Batch(put(b.inputs), put(b.labels), b.ids, put(b.mask)))
+    for k, b in enumerate(batches):
+        arrays = (b.inputs, b.labels, b.mask)
+        with span("crosstalk.pipeline.stage", host_only=True, batch=k,
+                  bytes=sum(a.nbytes for a in arrays)):
+            staged = [stage(a) for a in arrays]
+        inputs, labels, mask = (t.to(device, non_blocking=pin) for t in staged)
+        queue.append(Batch(inputs, labels, b.ids, mask))
         if len(queue) > _PREFETCH_DEPTH:
             yield queue.popleft()
     while queue:

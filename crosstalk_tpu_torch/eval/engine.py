@@ -17,6 +17,7 @@ device count.
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -41,9 +42,10 @@ from crosstalk_tpu_torch.parallel.distributed import (
     process_row_slice,
     world_size,
 )
-from crosstalk_tpu_torch.utils.profiling import check_finite
+from crosstalk_tpu_torch.utils.profiling import check_finite, span
 
 _METRICS = artifacts.EVAL_FIELDNAMES[3:]
+_passes = itertools.count()  # the ``pass`` attribute of evaluate's spans
 
 
 def _eval_step(forward: Callable, inputs, labels, mask, with_metrics: bool = True):
@@ -110,7 +112,16 @@ def evaluate(
     rows of each batch; every rank returns the same rows and loss.
     ``replicas``: the number of row blocks ``forward`` splits a batch into
     (``parallel.replicated_forward``). The batch is rounded to a multiple
-    of ranks x replicas."""
+    of ranks x replicas.
+
+    Spans (``utils/profiling.span``, recorded while a profiler session
+    runs), all children of one ``crosstalk.engine.pass`` (attribute
+    ``pass``, inherited by them) beside the pipeline's ``assemble`` and
+    ``stage``: per batch, ``crosstalk.engine.launch`` (the host enqueuing
+    normalize, forward and metrics; not twinned, it launches kernels) and
+    ``crosstalk.engine.rows`` (twinned: the loss sum and the row dicts,
+    from after the read-back). The host's wait in the read-back is in the
+    pass span's self time alone."""
     rows: List[Dict] = []
     total_sq_err = 0.0
     total_n = 0
@@ -128,29 +139,33 @@ def evaluate(
         batches = device_batches(
             iterate_batches(store, batch_size, assemble_rows=assemble), device)
     batches = _progress(batches, desc, num_batches(len(store), batch_size))
-    for batch in batches:
-        out = _eval_step(forward, batch.inputs, batch.labels, batch.mask,
-                         with_metrics)
-        parts = (out, batch.mask, batch.labels, batch.ids)
-        if ranks > 1:  # every rank holds its rows only: gather all, in rank order
-            out, mask, labels, ids = allgather_to_host(parts, process_group)
-        else:
-            out, mask, labels = ({k: v.cpu().numpy() for k, v in out.items()},
-                                 batch.mask.cpu().numpy(), batch.labels.cpu().numpy())
-            ids = batch.ids
-        labels = labels[:, 0]
-        real = int(mask.sum())
-        total_sq_err += float(out["sq_err"].sum())
-        total_n += real
-        for j in range(real):
-            row = {
-                "Actual_Label": np.float32(labels[j]),
-                "Predicted_Label": np.float32(out["preds"][j]),
-            }
-            if with_metrics:
-                row = {"Image_ID": int(ids[j]), **row,
-                       **{k: np.float32(out[k][j]) for k in _METRICS}}
-            rows.append(row)
+    with span("crosstalk.engine.pass", host_only=False, **{"pass": next(_passes)}):
+        for index, batch in enumerate(batches):
+            with span("crosstalk.engine.launch", host_only=False, batch=index):
+                out = _eval_step(forward, batch.inputs, batch.labels, batch.mask,
+                                 with_metrics)
+            parts = (out, batch.mask, batch.labels, batch.ids)
+            if ranks > 1:  # every rank holds its rows only: gather all, in rank order
+                out, mask, labels, ids = allgather_to_host(parts, process_group)
+            else:
+                out, mask, labels = ({k: v.cpu().numpy() for k, v in out.items()},
+                                     batch.mask.cpu().numpy(),
+                                     batch.labels.cpu().numpy())
+                ids = batch.ids
+            with span("crosstalk.engine.rows", host_only=True, batch=index):
+                labels = labels[:, 0]
+                real = int(mask.sum())
+                total_sq_err += float(out["sq_err"].sum())
+                total_n += real
+                for j in range(real):
+                    row = {
+                        "Actual_Label": np.float32(labels[j]),
+                        "Predicted_Label": np.float32(out["preds"][j]),
+                    }
+                    if with_metrics:
+                        row = {"Image_ID": int(ids[j]), **row,
+                               **{k: np.float32(out[k][j]) for k in _METRICS}}
+                    rows.append(row)
 
     return rows, total_sq_err / max(total_n, 1)
 
