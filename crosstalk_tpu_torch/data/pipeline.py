@@ -7,7 +7,8 @@
      padded by index 0 and flagged by a zero ``mask``;
   3. ``device_batches`` copies each batch to the card from pinned memory
      with ``non_blocking=True``, enqueued up to two batches ahead (the JAX
-     package's ``device_prefetch``);
+     package's ``device_prefetch``), while a producer thread assembles the
+     next batches straight into pinned memory;
   4. or ``DeviceDataset``: the whole split uploaded to the card once, each
      batch an ``index_select`` there, in the same order as
      ``iterate_batches``.
@@ -24,11 +25,15 @@ decoder served, so a broken build does not hide behind the fallback.
 from __future__ import annotations
 
 import collections
+import collections.abc
 import concurrent.futures as cf
+import contextlib
 import hashlib
+import itertools
 import os
+import queue
 import threading
-from typing import Iterator, List, NamedTuple, Optional, Sequence
+from typing import Callable, Iterable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -196,60 +201,130 @@ def iterate_batches(
     epoch: int = 0,
     assembly_threads: int = 4,
     assemble_rows: Optional[slice] = None,
-) -> Iterator[Batch]:
-    """Yield host batches from a TileStore.
+) -> "HostBatches":
+    """The host batches of one pass over a TileStore (a :class:`HostBatches`:
+    iterating it assembles them one by one).
 
     The final partial batch is padded to ``batch_size`` with a zero ``mask``
-    unless ``drop_last``. Rows are copied in sorted-source order (sequential
-    walks of a memory-mapped cache) by ``assembly_threads`` threads; the
-    output is the same as a plain row loop.
+    unless ``drop_last``. Rows are copied by ``assembly_threads`` threads,
+    each one block of the batch's rows; the output is the same as a plain
+    row loop.
 
     ``assemble_rows`` (a rank's ``parallel.process_row_slice``): each batch
     holds only that row range of the global batch (inputs, labels, ids and
     mask), so a rank copies and uploads only its own rows. The JAX package
     keeps full-size host buffers with the other rows zeroed and assembles a
     global array; here each rank steps on its rows alone.
-
-    Span ``crosstalk.pipeline.assemble`` (``utils/profiling.span``, twinned
-    in the profiler's timeline; attributes ``batch``, ``rows``, ``bytes``):
-    one per batch, from the index cut to the ``Batch`` handed out: the mask,
-    the ``np.empty`` of the inputs, the sort and the row copies this thread
-    waits on. The consumer's work between batches is outside it.
     """
-    pool = (
-        cf.ThreadPoolExecutor(assembly_threads)
-        if assembly_threads > 1 else None
-    )
-    rows = slice(None) if assemble_rows is None else assemble_rows
-    row_shape = store.tiles.shape[1:]
-    row_bytes = int(np.prod(row_shape)) * 4
-    try:
-        for k, (idx, real) in enumerate(_epoch_index_batches(
-            len(store), batch_size, shuffle, drop_last, seed, epoch
-        )):
-            idx = idx[rows]
-            with span("crosstalk.pipeline.assemble", host_only=True, batch=k,
-                      rows=len(idx), bytes=len(idx) * row_bytes):
-                mask = np.zeros(batch_size, dtype=np.float32)
+    return HostBatches(store, batch_size, shuffle, drop_last, seed, epoch,
+                       assembly_threads, assemble_rows)
+
+
+class HostBatches:
+    """One pass of host batches over a TileStore (``iterate_batches``).
+
+    Iterating it yields numpy ``Batch``es, each assembled on the caller's
+    thread when asked for. ``device_batches`` runs :meth:`assembled` on a
+    producer thread instead, which on a CUDA device writes each batch's
+    inputs straight into pinned memory."""
+
+    def __init__(self, store: TileStore, batch_size: int, shuffle: bool,
+                 drop_last: bool, seed: int, epoch: int, assembly_threads: int,
+                 assemble_rows: Optional[slice]):
+        self.store, self.batch_size = store, batch_size
+        self.cut = list(_epoch_index_batches(
+            len(store), batch_size, shuffle, drop_last, seed, epoch))
+        self.threads = assembly_threads
+        self.rows = slice(None) if assemble_rows is None else assemble_rows
+
+    def __len__(self) -> int:
+        return len(self.cut)
+
+    def __iter__(self) -> Iterator[Batch]:
+        for b in self.assembled(_fresh, {}):
+            yield Batch(b.inputs.numpy(), b.labels.numpy(), b.ids, b.mask.numpy())
+
+    def assembled(self, destination: Callable[[tuple], torch.Tensor],
+                  tags: dict) -> Iterator[Batch]:
+        """The batches with inputs, labels and mask as CPU tensors, each
+        batch's inputs written into ``destination(shape)`` (:func:`_staged`,
+        whose spans take ``tags``)."""
+        store, rows = self.store, self.rows
+        row_shape = store.tiles.shape[1:]
+        pool = cf.ThreadPoolExecutor(self.threads) if self.threads > 1 else None
+        try:
+            for k, (idx, real) in enumerate(self.cut):
+                idx = idx[rows]
+                mask = np.zeros(self.batch_size, dtype=np.float32)
                 mask[:real] = 1.0
-                mask = mask[rows]
-                inputs = np.empty((len(idx), *row_shape), np.float32)
-                src_sorted = np.argsort(idx, kind="stable")
 
-                def copy_rows(dsts):
-                    for j in dsts:
-                        inputs[j] = store.tiles[idx[j]]
+                def fill(out: np.ndarray, idx=idx) -> None:
+                    _copy_rows(store.tiles, idx, out, pool, self.threads)
 
-                if pool is None:
-                    copy_rows(src_sorted)
-                else:
-                    chunks = np.array_split(src_sorted, assembly_threads)
-                    list(pool.map(copy_rows, chunks))
-                batch = Batch(inputs, store.labels[idx], store.ids[idx], mask)
-            yield batch
-    finally:
-        if pool is not None:
-            pool.shutdown(wait=False)
+                yield _staged(k, (len(idx), *row_shape), store.labels[idx],
+                              store.ids[idx], mask[rows], fill, destination, tags)
+        finally:
+            if pool is not None:
+                pool.shutdown()
+
+
+def _staged(k: int, shape: tuple, labels: np.ndarray, ids: np.ndarray,
+            mask: np.ndarray, fill: Callable[[np.ndarray], None],
+            destination: Callable[[tuple], torch.Tensor], tags: dict) -> Batch:
+    """Batch ``k``, its inputs written by ``fill`` into ``destination(shape)``.
+
+    Spans (``utils/profiling.span``; attributes ``batch`` and ``tags``):
+
+    * ``crosstalk.pipeline.stage`` (``bytes``): the destination and the
+      labels and mask as tensors. The labels and mask, a few hundred bytes,
+      stay pageable: CUDA copies them to its own staging memory before an
+      asynchronous copy returns;
+    * ``crosstalk.pipeline.assemble`` (``rows``, ``bytes``): ``fill``.
+
+    Neither is twinned: on a producer thread the profiler records no
+    ``record_function`` range."""
+    nbytes = int(np.prod(shape)) * 4
+    with span("crosstalk.pipeline.stage", host_only=False, batch=k,
+              bytes=nbytes + labels.nbytes + mask.nbytes, **tags):
+        inputs = destination(shape)
+        labels, mask = torch.from_numpy(labels), torch.from_numpy(mask)
+    with span("crosstalk.pipeline.assemble", host_only=False, batch=k,
+              rows=shape[0], bytes=nbytes, **tags):
+        fill(inputs.numpy())
+    return Batch(inputs, labels, ids, mask)
+
+
+def _given(batches: Iterable[Batch], destination: Callable[[tuple], torch.Tensor],
+           tags: dict) -> Iterator[Batch]:
+    """Host batches from any iterable, as :meth:`HostBatches.assembled`
+    hands them over: the inputs copied into ``destination``."""
+    for k, b in enumerate(batches):
+        yield _staged(k, b.inputs.shape, b.labels, b.ids, b.mask,
+                      lambda out, given=b.inputs: np.copyto(out, given),
+                      destination, tags)
+
+
+def _fresh(shape: tuple) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32)
+
+
+def _copy_rows(tiles, idx: np.ndarray, out: np.ndarray, pool, threads: int) -> None:
+    """``out[j] = tiles[idx[j]]`` for every j: one ``np.take`` per block of
+    ``out``'s rows, the blocks split over ``pool``'s ``threads`` threads (one
+    block on this thread without a pool). A block is one call into numpy,
+    so a copy thread takes the interpreter lock a few times a batch, not
+    once a row, and leaves it to the engine's thread as it launches."""
+
+    def copy(block: slice) -> None:
+        # "clip" writes straight into out ("raise" goes through a buffer);
+        # every index is in range
+        np.take(tiles, idx[block], axis=0, out=out[block], mode="clip")
+
+    if pool is None:
+        copy(slice(None))
+    else:
+        cuts = np.linspace(0, len(idx), threads + 1).astype(int)
+        list(pool.map(copy, [slice(a, b) for a, b in zip(cuts[:-1], cuts[1:])]))
 
 
 def num_batches(n: int, batch_size: int, drop_last: bool = False) -> int:
@@ -257,41 +332,142 @@ def num_batches(n: int, batch_size: int, drop_last: bool = False) -> int:
 
 
 _PREFETCH_DEPTH = 2  # batches whose host -> device copy is in flight
+_AHEAD = 2  # host batches the producer thread holds ready for the consumer
+# pinned input buffers a pass uses in turn: those ready, the one being
+# assembled, and the consumer's, whose copy it has enqueued
+_SLOTS = _AHEAD + 2
 
 
-def device_batches(batches: Iterator[Batch], device: torch.device) -> Iterator[Batch]:
+def device_batches(batches: Iterable[Batch], device: torch.device,
+                   tags: Optional[dict] = None) -> Iterator[Batch]:
     """Move ``inputs``/``labels``/``mask`` of each batch to ``device``
     (``ids`` stay on the host), enqueueing up to two batches ahead.
 
-    On a CUDA device the arrays go through pinned host memory with
-    ``non_blocking=True``, so the host returns before the copy ends and can
-    assemble the next batch. The copies run in order with the compute on
-    the current stream. PyTorch's pinned-memory allocator holds each pinned
-    buffer until the copy that reads it has completed.
-
-    Span ``crosstalk.pipeline.stage`` (twinned in the profiler's timeline;
-    attributes ``batch``, ``bytes``): one per batch, the ``from_numpy`` and
-    the copy into pinned memory of inputs, labels and mask. The enqueue of
-    the copies to the device (``.to``) is outside it: a range that launches
-    a copy would count as device activity in the profiler's timeline."""
+    A producer thread stages the batches up to ``_AHEAD`` ahead of this one
+    (``_assembled_ahead``): it assembles a ``HostBatches``
+    (``iterate_batches``) straight into each batch's destination, and
+    copies any other iterable's inputs into it. On a CUDA device the
+    destination is pinned memory (``_PinnedSlots``) and the copies go with
+    ``non_blocking=True``, so the host returns before a copy ends; they run
+    in order with the compute on the current stream. Their enqueue
+    (``.to``) is in no span: a range that launches a copy would count as
+    device activity in the profiler's timeline. ``tags`` (a pass's
+    attributes) go on the producer's spans, which have no parent on their
+    thread."""
     pin = device.type == "cuda"
+    inflight: collections.deque = collections.deque()
+    ready = _assembled_ahead(batches, device, tags or {})
+    with contextlib.closing(ready):
+        for b in ready:
+            inputs, labels, mask = (t.to(device, non_blocking=pin)
+                                    for t in (b.inputs, b.labels, b.mask))
+            inflight.append(Batch(inputs, labels, b.ids, mask))
+            if len(inflight) > _PREFETCH_DEPTH:
+                yield inflight.popleft()
+    while inflight:
+        yield inflight.popleft()
 
-    def stage(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        return t.pin_memory() if pin else t
 
-    queue: collections.deque = collections.deque()
-    for k, b in enumerate(batches):
-        arrays = (b.inputs, b.labels, b.mask)
-        with span("crosstalk.pipeline.stage", host_only=True, batch=k,
-                  bytes=sum(a.nbytes for a in arrays)):
-            staged = [stage(a) for a in arrays]
-        inputs, labels, mask = (t.to(device, non_blocking=pin) for t in staged)
-        queue.append(Batch(inputs, labels, b.ids, mask))
-        if len(queue) > _PREFETCH_DEPTH:
-            yield queue.popleft()
-    while queue:
-        yield queue.popleft()
+class _PinnedSlots:
+    """The pinned input buffers of one pass on a CUDA device, used in turn.
+
+    The consumer gives a slot back once it has enqueued the copy that reads
+    it, with an event recorded behind that copy on the copy's stream; the
+    producer waits for that event before it writes the slot again. The
+    producer runs at most ``_AHEAD`` batches ahead of the consumer, so
+    ``_SLOTS`` slots always leave one given back: a pass allocates them
+    once, and after the first pass PyTorch's caching pinned-memory
+    allocator hands back the same blocks."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.made = 0
+        self.free: collections.deque = collections.deque()  # (inputs, copied)
+
+    def take(self, shape: tuple) -> torch.Tensor:
+        """The producer's: a buffer of ``shape`` no copy still reads."""
+        while self.made >= _SLOTS and self.free:
+            inputs, copied = self.free.popleft()
+            if inputs.shape == shape:
+                copied.synchronize()
+                return inputs
+        self.made += 1
+        return torch.empty(shape, dtype=torch.float32, pin_memory=True)
+
+    def give_back(self, inputs: torch.Tensor) -> None:
+        """The consumer's, after it has enqueued the copy of ``inputs``."""
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(self.device))
+        self.free.append((inputs, copied))
+
+
+class _Raised:
+    """An error of the producer thread, handed to the consumer to raise."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+_END = object()  # the producer's last item after an iterable of no length
+
+
+def _assembled_ahead(batches: Iterable[Batch], device: torch.device,
+                     tags: dict) -> Iterator[Batch]:
+    """The batches staged on a producer thread that holds up to ``_AHEAD``
+    of them ready; yields them in order on this thread.
+
+    An error of the producer is raised here. Closing this generator (a
+    ``break`` or an error in the consumer) stops the producer and joins it
+    and its assembly pool, so a pass leaves no thread behind.
+
+    Span ``crosstalk.pipeline.wait`` (twinned; attributes ``batch`` and
+    ``ready``, true when the batch was already there): one per batch, this
+    thread's wait for it, and one more for the end of an iterable of no
+    length."""
+    slots = _PinnedSlots(device) if device.type == "cuda" else None
+    destination = _fresh if slots is None else slots.take
+    source = (batches.assembled(destination, tags) if isinstance(batches, HostBatches)
+              else _given(batches, destination, tags))
+    count = len(batches) if isinstance(batches, collections.abc.Sized) else None
+    assembled: queue.Queue = queue.Queue(_AHEAD)
+    stop = threading.Event()
+
+    def produce() -> None:
+        try:
+            for b in source:
+                assembled.put(b)
+                del b  # the consumer's alone now
+                if stop.is_set():
+                    return
+            assembled.put(_END)
+        except BaseException as exc:  # raised again on the consumer's thread
+            assembled.put(_Raised(exc))
+        finally:
+            source.close()  # shuts its assembly pool down
+
+    producer = threading.Thread(target=produce, name="crosstalk-batch-producer",
+                                daemon=True)
+    producer.start()
+    try:
+        for k in itertools.count() if count is None else range(count):
+            with span("crosstalk.pipeline.wait", host_only=True, batch=k,
+                      ready=not assembled.empty()):
+                item = assembled.get()
+            if item is _END:
+                return
+            if isinstance(item, _Raised):
+                raise item.error
+            yield item
+            if slots is not None:  # its copy is enqueued
+                slots.give_back(item.inputs)
+    finally:
+        stop.set()
+        while producer.is_alive():  # unblock a producer waiting on a full queue
+            try:
+                assembled.get(timeout=0.01)
+            except queue.Empty:
+                pass
+        producer.join()
 
 
 class DeviceDataset:

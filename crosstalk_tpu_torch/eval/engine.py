@@ -17,6 +17,7 @@ device count.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -115,13 +116,15 @@ def evaluate(
     of ranks x replicas.
 
     Spans (``utils/profiling.span``, recorded while a profiler session
-    runs), all children of one ``crosstalk.engine.pass`` (attribute
-    ``pass``, inherited by them) beside the pipeline's ``assemble`` and
-    ``stage``: per batch, ``crosstalk.engine.launch`` (the host enqueuing
-    normalize, forward and metrics; not twinned, it launches kernels) and
-    ``crosstalk.engine.rows`` (twinned: the loss sum and the row dicts,
-    from after the read-back). The host's wait in the read-back is in the
-    pass span's self time alone."""
+    runs): one ``crosstalk.engine.pass`` (attribute ``pass``) and, per
+    batch, its children on this thread, which inherit ``pass``: the
+    pipeline's ``wait`` for the next assembled batch,
+    ``crosstalk.engine.launch`` (the host enqueuing normalize, forward and
+    metrics; not twinned, it launches kernels) and ``crosstalk.engine.rows``
+    (twinned: the loss sum and the row dicts, from after the read-back).
+    The pipeline's ``assemble`` and ``stage`` run on its producer thread:
+    they are given the pass's ``pass`` and are no children of it. The host's
+    wait in the read-back is in the pass span's self time alone."""
     rows: List[Dict] = []
     total_sq_err = 0.0
     total_n = 0
@@ -130,6 +133,7 @@ def evaluate(
     multiple = ranks * replicas
     batch_size = max((batch_size // multiple) * multiple, multiple)
     assemble = process_row_slice(batch_size, process_group) if ranks > 1 else None
+    pass_id = next(_passes)
     if isinstance(store, DeviceDataset):
         if ranks > 1:
             raise ValueError("DeviceDataset evaluation is single-device; pass a "
@@ -137,10 +141,13 @@ def evaluate(
         batches = store.batches(batch_size)
     else:
         batches = device_batches(
-            iterate_batches(store, batch_size, assemble_rows=assemble), device)
-    batches = _progress(batches, desc, num_batches(len(store), batch_size))
-    with span("crosstalk.engine.pass", host_only=False, **{"pass": next(_passes)}):
-        for index, batch in enumerate(batches):
+            iterate_batches(store, batch_size, assemble_rows=assemble), device,
+            tags={"pass": pass_id})
+    # closed on an error too: that stops and joins the pipeline's producer
+    with (span("crosstalk.engine.pass", host_only=False, **{"pass": pass_id}),
+          contextlib.closing(batches)):
+        for index, batch in enumerate(
+                _progress(batches, desc, num_batches(len(store), batch_size))):
             with span("crosstalk.engine.launch", host_only=False, batch=index):
                 out = _eval_step(forward, batch.inputs, batch.labels, batch.mask,
                                  with_metrics)

@@ -282,6 +282,90 @@ def test_cuda_device_dataset_order_equals_iterate_batches(cuda_device, tmp_path)
             assert torch.equal(d.mask.cpu(), torch.from_numpy(h.mask))
 
 
+def _in_ram_store(n, size, seed=0):
+    import numpy as np
+
+    from crosstalk_tpu_torch.data.index import Sample
+    from crosstalk_tpu_torch.data.pipeline import TileStore
+
+    rng = np.random.default_rng(seed)
+    store = TileStore.__new__(TileStore)
+    alphas = rng.uniform(0.01, 0.5, n)
+    store.samples = [Sample(str(i), float(a), "", "") for i, a in enumerate(alphas)]
+    store.labels = alphas.astype(np.float32).reshape(-1, 1)
+    store.ids = np.arange(n, dtype=np.int64)
+    store.tiles = rng.random((n, size, size, 2), dtype=np.float32)
+    return store
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(shuffle=True, drop_last=True, seed=3, epoch=2),
+                                dict(shuffle=True, seed=1, assemble_rows=slice(2, 6))])
+def test_cuda_pinned_batches_are_byte_identical_to_the_host_ones(cuda_device, kw):
+    """The producer thread's batches, assembled straight into pinned memory
+    and copied to the card, hold the bytes of ``iterate_batches``' own."""
+    import numpy as np
+
+    from crosstalk_tpu_torch.data.pipeline import device_batches, iterate_batches
+
+    store = _in_ram_store(61, 16)  # more batches than the ring has slots
+    host = list(iterate_batches(store, 8, **kw))
+    dev = list(device_batches(iterate_batches(store, 8, **kw), cuda_device))
+    assert len(host) == len(dev) > 0
+    for h, d in zip(host, dev):
+        assert d.inputs.is_cuda and d.labels.is_cuda and d.mask.is_cuda
+        for field in ("inputs", "labels", "mask"):
+            got = getattr(d, field).cpu().numpy()
+            assert got.tobytes() == getattr(h, field).tobytes(), field
+        assert np.array_equal(d.ids, h.ids)
+
+
+@pytest.mark.cuda
+def test_cuda_score_passes_equal_a_serial_run_and_stop_allocating_pinned_memory(cuda_device):
+    """Five passes of ``evaluate`` with the fast forward over an in-RAM
+    store (batches assembled on the producer thread into pinned memory)
+    give the rows of a run that has no host pipeline (a ``DeviceDataset``);
+    the first pass allocates at most one pinned block per slot of the
+    pipeline's ring, and no pass after it allocates any."""
+    import threading
+
+    import numpy as np
+
+    from crosstalk_tpu_torch.config import ModelConfig
+    from crosstalk_tpu_torch.data.pipeline import _SLOTS, DeviceDataset
+    from crosstalk_tpu_torch.eval.engine import evaluate
+    from crosstalk_tpu_torch.eval.fast_forward import make_fast_forward
+    from crosstalk_tpu_torch.models.registry import build_model
+
+    size = 64
+    cfg = ModelConfig(initial_filters=8, num_conv_blocks=3, compute_dtype="bf16")
+    torch.manual_seed(0)
+    model = build_model(cfg, image_size=size).eval()
+    forward = make_fast_forward(cfg, {k: v.to(cuda_device)
+                                      for k, v in model.state_dict().items()})
+    store = _in_ram_store(400, size)  # seven batches of 64, the last one padded
+    want, want_loss = evaluate(forward, DeviceDataset(store, cuda_device), cuda_device,
+                               batch_size=64)
+    threads = threading.active_count()
+
+    def host_allocs():
+        return torch.cuda.host_memory_stats()["num_host_alloc"]
+
+    allocs = []
+    before = host_allocs()
+    for _ in range(5):
+        got, loss = evaluate(forward, store, cuda_device, batch_size=64)
+        allocs.append(host_allocs())
+        assert loss == want_loss
+        assert [list(r) for r in got] == [list(r) for r in want]
+        for a, b in zip(got, want):
+            for k in a:
+                assert np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes(), k
+        assert threading.active_count() == threads
+    assert 0 < allocs[0] - before <= _SLOTS and allocs[1:] == [allocs[0]] * 4, (
+        before, allocs)
+
+
 # --- the int8 tier and the AOT artifact on the card -------------------------
 
 @pytest.mark.cuda

@@ -1,11 +1,13 @@
 """The program's spans (``utils/profiling.span``) on the CPU: they record
 only while a ``torch.profiler`` session runs and call nothing of torch
 otherwise; ``evaluate`` over an in-RAM ``TileStore`` records, per batch,
-the pipeline's ``assemble`` and ``stage`` and the engine's ``launch`` and
-``rows``, joined by their ``batch`` and ``pass`` attributes; the twinned
-ones are events of the profiler's timeline (and of ``maybe_trace``'s
-chrome trace) on the spans' clock; each session starts from an empty
-buffer; and tracing changes no result."""
+the pipeline's ``assemble`` and ``stage`` on its producer thread (no
+children of the pass, which they name by its ``pass``), and the pipeline's
+``wait`` and the engine's ``launch`` and ``rows`` as children of the pass,
+joined by their ``batch`` and ``pass`` attributes; the twinned ones
+(``rows`` and ``wait``, on the pass's thread) are events of the profiler's
+timeline (and of ``maybe_trace``'s chrome trace) on the spans' clock; each
+session starts from an empty buffer; and tracing changes no result."""
 
 import sys
 import threading
@@ -32,10 +34,11 @@ from crosstalk_tpu_torch.utils.profiling import (
 
 CPU = torch.device("cpu")
 SIZE, N, BATCH = 32, 20, 8  # three batches, the last one padded
-BATCH_SPANS = ("crosstalk.pipeline.assemble", "crosstalk.pipeline.stage",
-               "crosstalk.engine.launch", "crosstalk.engine.rows")
-TWINNED = {"crosstalk.pipeline.assemble", "crosstalk.pipeline.stage",
-           "crosstalk.engine.rows"}
+PRODUCER_SPANS = ("crosstalk.pipeline.assemble", "crosstalk.pipeline.stage")
+CHILD_SPANS = ("crosstalk.pipeline.wait", "crosstalk.engine.launch",
+               "crosstalk.engine.rows")
+BATCH_SPANS = PRODUCER_SPANS + CHILD_SPANS
+TWINNED = {"crosstalk.pipeline.wait", "crosstalk.engine.rows"}
 
 
 def _store() -> TileStore:
@@ -107,10 +110,14 @@ def test_evaluate_records_the_four_spans_of_every_batch(scoring):
         mine = [r for r in recs if r.name == name]
         assert sorted(r.attrs["batch"] for r in mine) == list(range(batches)), name
         assert {r.attrs["pass"] for r in mine} == {whole.attrs["pass"]}
-        assert all(r.parent is whole for r in mine)
+        # the producer thread's spans carry the pass's attribute, no parent
+        assert all(r.parent is (None if name in PRODUCER_SPANS else whole)
+                   for r in mine), name
     for r in recs:
         assert r.name.startswith("crosstalk.") and "fused_input_block" not in r.name
         assert t0 <= r.start_ns <= r.end_ns <= t1
+    assert all(isinstance(r.attrs["ready"], bool)
+               for r in recs if r.name == "crosstalk.pipeline.wait")
     assert [r.attrs["rows"] for r in recs if r.name == BATCH_SPANS[0]] == [BATCH] * batches
     assert {r.attrs["bytes"] for r in recs if r.name == BATCH_SPANS[0]} == {
         BATCH * SIZE * SIZE * 2 * 4}
@@ -119,7 +126,7 @@ def test_evaluate_records_the_four_spans_of_every_batch(scoring):
     for name, seconds in selfs.items():
         total = sum(r.end_ns - r.start_ns for r in recs if r.name == name) / 1e9
         assert 0 <= seconds <= total
-    inner = sum(selfs[n] for n in BATCH_SPANS)
+    inner = sum(selfs[n] for n in CHILD_SPANS)  # its own thread's children only
     assert selfs["crosstalk.engine.pass"] == pytest.approx(
         (whole.end_ns - whole.start_ns) / 1e9 - inner, abs=1e-6)
 
@@ -136,7 +143,8 @@ def test_twinned_spans_are_events_of_the_profiler_on_the_spans_clock(scoring):
     _, prof, _, _ = _traced(lambda: evaluate(forward, store, CPU, batch_size=BATCH))
     events = [(e.name(), e.start_ns()) for e in prof.profiler.kineto_results.events()
               if e.name().startswith("crosstalk.")]
-    assert {name for name, _ in events} == TWINNED  # not launch, not pass
+    # not launch, not pass, and not the producer thread's assemble and stage
+    assert {name for name, _ in events} == TWINNED
     recs = span_records()
     assert len(events) == sum(r.name in TWINNED for r in recs)
     for name, start in events:
@@ -182,7 +190,8 @@ def test_maybe_trace_writes_the_twinned_spans(scoring, tmp_path, capsys):
     text = path.read_text()
     for name in TWINNED:
         assert f'"{name}"' in text, name
-    assert '"crosstalk.engine.launch"' not in text
+    for name in ("crosstalk.engine.launch",) + PRODUCER_SPANS:
+        assert f'"{name}"' not in text, name
     assert "Profiler trace written" in capsys.readouterr().out
 
 
