@@ -10,18 +10,23 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default, see registry.init_model).
 
 With a ``process_group`` the BatchNorms are cross-replica
 (``CrossReplicaBatchNorm2d``/``1d``), the JAX package's
-``BatchNorm(axis_name='data')``; without one they are ``nn.BatchNorm2d`` and
-``OneRowBatchNorm1d`` (``nn.BatchNorm1d`` that also trains on one row).
+``BatchNorm(axis_name='data')``; without one they are ``ChunkedBatchNorm2d``
+(``nn.BatchNorm2d``, whose train-mode backward on the card reduces over batch
+chunks where the input is too large for torch's 32-bit channels-last
+kernels) and ``OneRowBatchNorm1d`` (``nn.BatchNorm1d`` that also trains on
+one row).
 """
 
 from __future__ import annotations
 
+import threading
 import warnings
 from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
@@ -124,9 +129,103 @@ class OneRowBatchNorm1d(nn.BatchNorm1d):
         return super().forward(x)
 
 
+# torch's channels-last BatchNorm kernels index with int32 (``const int
+# reduction_size``, ATen/native/cuda/Normalization.cuh) and are dispatched
+# only where ``canUse32BitIndexMath`` holds: on an input of this many
+# elements or more the backward reduce falls back to the int64 NCHW
+# template, whose neighbouring threads read channels-last memory C
+# elements apart
+_INT32_NUMEL = 2**31 - 1
+_engaged_lock = threading.Lock()
+
+
+def _row_chunks(t: torch.Tensor):
+    """``t`` split along the batch into the fewest near-equal row chunks of
+    fewer than ``_INT32_NUMEL`` elements each (views of a channels-last
+    ``t``)."""
+    rows = (_INT32_NUMEL - 1) // (t.numel() // t.shape[0])
+    return torch.tensor_split(t, -(-t.shape[0] // rows))
+
+
+class ChunkedBatchNormFn(torch.autograd.Function):
+    """Train-mode BatchNorm2d whose backward reduces over batch chunks.
+
+    The forward is ``torch.native_batch_norm``, as ``nn.BatchNorm2d``
+    calls it, so the output and the running statistics are the module's.
+    The backward is the one ``nn.SyncBatchNorm`` builds from two primitives,
+    with row chunks in place of ranks: ``torch.batch_norm_backward_reduce``
+    per chunk, the chunks' sums added, then ``torch.batch_norm_backward_elemt``
+    per chunk with the whole batch's sums and count, each chunk's gradient
+    copied into one channels-last ``grad_input``. Every chunk is small
+    enough for torch's channels-last kernels. ``engaged`` counts the
+    backward calls."""
+
+    engaged = 0
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum: float,
+                eps: float):
+        out, mean, invstd = torch.native_batch_norm(
+            x, weight, bias, running_mean, running_var, True, momentum, eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dys = _row_chunks(grad_out.contiguous(memory_format=torch.channels_last))
+        xs = _row_chunks(x)
+        parts = [torch.batch_norm_backward_reduce(dy, xc, mean, invstd, weight, True, True, True)
+                 for dy, xc in zip(dys, xs)]
+        sum_dy, sum_dy_xmu, grad_weight, grad_bias = (sum(p[1:], p[0]) for p in zip(*parts))
+        grad_input = None
+        if ctx.needs_input_grad[0]:
+            count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.int32,
+                               device=x.device)
+            grad_input = torch.empty_like(x)
+            for dy, xc, g in zip(dys, xs, _row_chunks(grad_input)):
+                g.copy_(torch.batch_norm_backward_elemt(
+                    dy, xc, mean, invstd, weight, sum_dy, sum_dy_xmu, count))
+        with _engaged_lock:  # autograd runs backward on its own threads
+            ChunkedBatchNormFn.engaged += 1
+        return grad_input, grad_weight, grad_bias, None, None, None, None
+
+
+class ChunkedBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode backward runs through
+    ``ChunkedBatchNormFn`` where torch's own would leave its channels-last
+    kernels: on a channels-last CUDA input of ``_INT32_NUMEL`` elements or
+    more (the single-branch block 0 at batch 256 and up, the two-branch
+    one at 512 and up). Anything else is ``nn.BatchNorm2d.forward``. Same
+    ``repr`` and ``state_dict`` as ``nn.BatchNorm2d``."""
+
+    def _get_name(self) -> str:
+        return "BatchNorm2d"
+
+    def _chunked(self, x: torch.Tensor) -> bool:
+        """Whether ``x`` takes ``ChunkedBatchNormFn``: in training, a
+        channels-last CUDA input past torch's int32 limit, of which one row
+        and the count of one channel's values stay under it."""
+        return (self.training and self.affine and self.track_running_stats
+                and x.is_cuda and x.is_contiguous(memory_format=torch.channels_last)
+                and x.numel() >= _INT32_NUMEL
+                and max(x.numel() // x.shape[0], x.numel() // x.shape[1]) < _INT32_NUMEL)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._chunked(x):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        momentum = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                    else self.momentum)
+        return ChunkedBatchNormFn.apply(x, self.weight, self.bias, self.running_mean,
+                                        self.running_var, momentum, self.eps)
+
+
 def _batch_norm(dims: int, features: int, process_group, **kw) -> nn.Module:
     if process_group is None:
-        return (nn.BatchNorm2d if dims == 2 else OneRowBatchNorm1d)(features, **kw)
+        return (ChunkedBatchNorm2d if dims == 2 else OneRowBatchNorm1d)(features, **kw)
     cls = CrossReplicaBatchNorm2d if dims == 2 else CrossReplicaBatchNorm1d
     return cls(features, process_group=process_group, **kw)
 

@@ -21,7 +21,8 @@ def build_model(cfg: ModelConfig, image_size: int = 256, device=None,
     forward does. ``device='meta'`` builds the module without storage.
     ``process_group`` (the JAX package's ``axis_name``) makes every
     BatchNorm cross-replica over its ranks in train mode; None (the
-    default) builds plain ``nn.BatchNorm2d`` and ``layers.OneRowBatchNorm1d``."""
+    default) builds ``layers.ChunkedBatchNorm2d`` (``nn.BatchNorm2d`` with a
+    chunked backward past int32 indexing) and ``layers.OneRowBatchNorm1d``."""
     common = dict(
         image_size=image_size,
         leaky_slope=cfg.leaky_slope,

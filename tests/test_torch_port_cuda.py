@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernel against its plain PyTorch
-version, and the serving path (predictor, batcher thread, f16 transport)
-on the card. They skip on a host without an NVIDIA card (the kernel has no
+version, the serving path (predictor, batcher thread, f16 transport) and
+the chunked BatchNorm backward (``models/layers.ChunkedBatchNorm2d``) on the
+card. They skip on a host without an NVIDIA card (the kernel has no
 CPU mode). This file imports neither JAX nor the test fixtures that do, so where
 JAX is not installed it runs as
 
@@ -703,3 +704,186 @@ def test_cuda_dispatcher_evaluate_fast_launches_k1(cuda_device, tmp_path):
     with open(path) as f:
         rows = list(csv.DictReader(f))
     assert len(rows) == 10 and all(math.isfinite(float(r["Predicted_Label"])) for r in rows)
+
+
+# --- the chunked BatchNorm backward past int32 indexing ---------------------
+
+def _bn_pair(device, c, dtype, seed):
+    """A ``ChunkedBatchNorm2d`` and an ``nn.BatchNorm2d`` in train mode with
+    the same affine and running statistics, off their init values."""
+    from crosstalk_tpu_torch.models.layers import ChunkedBatchNorm2d
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    plain = torch.nn.BatchNorm2d(c, device=device, dtype=dtype)
+    with torch.no_grad():
+        plain.weight.copy_(torch.rand(c, device=device, generator=gen) + 0.5)
+        plain.bias.copy_(torch.randn(c, device=device, generator=gen))
+        plain.running_mean.copy_(torch.randn(c, device=device, generator=gen) * 0.1)
+        plain.running_var.copy_(torch.rand(c, device=device, generator=gen) + 0.5)
+    bn = ChunkedBatchNorm2d(c, device=device, dtype=dtype)
+    bn.load_state_dict(plain.state_dict())
+    return bn.train(), plain.train()
+
+
+def _channels_last_randn(shape, dtype, gen, device):
+    n, c, h, w = shape
+    return torch.randn(n, h, w, c, dtype=dtype, device=device, generator=gen).permute(0, 3, 1, 2)
+
+
+def _bn_step(m, x, dy):
+    """-> (output, (grad input, grad weight, grad bias), running mean, var,
+    batches tracked) of one train-mode forward and backward of ``m``."""
+    leaf = x.detach().requires_grad_()
+    out = m(leaf)
+    grads = torch.autograd.grad(out, [leaf, m.weight, m.bias], dy)
+    return out.detach(), grads, *(t.clone() for t in m.buffers())
+
+
+def _assert_bn_matches(got, want, atol_share, affine=True):
+    """Output and running statistics bit for bit; weight and bias gradients
+    (unless ``affine`` is False) within ``atol_share`` x the leaf's largest
+    |g|; the input gradient within one ulp of its dtype per element where
+    it is bf16 (each side rounds an f32 value whose sums were added in
+    another order), else within ``atol_share`` x its largest |g|, and as a
+    whole (L2) within ``atol_share`` of it."""
+    (o1, g1, *s1), (o2, g2, *s2) = got, want
+    assert torch.equal(o1, o2), float((o1 - o2).abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2)), [(a - b).abs().max() for a, b in zip(s1, s2)]
+    for a, b in zip(g1[1:], g2[1:]) if affine else ():
+        diff, top = float((a - b).abs().max()), float(b.abs().max())
+        assert diff <= atol_share * top, (diff, top)
+    top, bf16 = float(g2[0].abs().max()), g2[0].dtype == torch.bfloat16
+    err2 = ref2 = 0.0
+    for a, b in zip(g1[0].split(16), g2[0].split(16)):  # 16 rows at a time
+        if bf16:  # f32 holds bf16 values and their differences exactly
+            a, b = a.float(), b.float()
+        d = (a - b).abs()
+        if bf16:
+            worst = float((d - 2.0 ** -7 * b.abs()).max())
+            assert worst <= 1e-6 * top, (worst, top)
+        else:
+            assert float(d.max()) <= atol_share * top, (float(d.max()), top)
+        err2 += float(d.square().sum())
+        ref2 += float(b.square().sum())
+    assert err2 ** 0.5 <= atol_share * ref2 ** 0.5, (err2 ** 0.5, ref2 ** 0.5)
+
+
+def _float64_affine_grads(x, dy, eps):
+    """-> float64 (grad weight, grad bias) of a train-mode BatchNorm2d of
+    ``x`` under the output gradient ``dy`` (neither depends on the weight),
+    16 rows at a time."""
+    c = x.shape[1]
+    sums = torch.zeros(5, c, dtype=torch.float64, device=x.device)
+    for xc, dyc in zip(x.split(16), dy.split(16)):
+        xc, dyc = xc.double(), dyc.double()
+        sums[:3] += torch.stack([xc.sum((0, 2, 3)), xc.square().sum((0, 2, 3)),
+                                 dyc.sum((0, 2, 3))])
+    n = x.numel() // c
+    mean = sums[0] / n
+    for xc, dyc in zip(x.split(16), dy.split(16)):
+        sums[3] += (dyc.double() * (xc.double() - mean.view(1, -1, 1, 1))).sum((0, 2, 3))
+    invstd = (sums[1] / n - mean.square() + eps).rsqrt()
+    return sums[3] * invstd, sums[2]
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_batch_norm_at_2_31_elements_matches_torch(cuda_device):
+    """Block 0 of the single-branch model at batch 256: a (256, 128, 256,
+    256) bf16 channels-last input with an f32 affine, 2**31 elements.
+    ``ChunkedBatchNorm2d`` gives ``nn.BatchNorm2d``'s output and running
+    statistics bit for bit, and its input gradient within one bf16 ulp per
+    element and 1e-3 (L2) of torch's own. Its weight and bias gradients,
+    sums of 2**24 f32 terms a channel, are held within 1e-5 x the leaf's
+    largest of their float64 sums: torch's own int64 NCHW reduce sits about
+    4e-3 x the largest from them on this input, the chunked one under 1e-6.
+    The profiler sees torch's channels-last reduce in its backward, and the
+    int64 NCHW reduce in torch's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crosstalk_tpu_torch.models.layers import ChunkedBatchNormFn
+
+    shape = (256, 128, 256, 256)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = _channels_last_randn(shape, torch.bfloat16, gen, cuda_device).mul_(2).add_(0.5)
+    dy = _channels_last_randn(shape, torch.bfloat16, gen, cuda_device)
+    assert x.numel() == 2 ** 31 and dy.is_contiguous(memory_format=torch.channels_last)
+    bn, plain = _bn_pair(cuda_device, 128, torch.float32, seed=8)
+    out, kernels = {}, {}
+    before = ChunkedBatchNormFn.engaged
+    for name, m in (("chunked", bn), ("torch", plain)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out[name] = _bn_step(m, x, dy)
+            torch.cuda.synchronize()
+        kernels[name] = [e.key for e in prof.key_averages()]
+    assert ChunkedBatchNormFn.engaged == before + 1
+    cl, nchw = "batch_norm_backward_reduce_channels_last_kernel", "batch_norm_backward_reduce_kernel"
+    assert any(cl in k for k in kernels["chunked"]), kernels["chunked"]
+    assert not any(nchw in k for k in kernels["chunked"]), kernels["chunked"]
+    assert any(nchw in k for k in kernels["torch"]), kernels["torch"]
+    _assert_bn_matches(out["chunked"], out["torch"], 1e-3, affine=False)
+    for got, want in zip(out["chunked"][1][1:], _float64_affine_grads(x, dy, bn.eps)):
+        err, top = float((got.double() - want).abs().max()), float(want.abs().max())
+        assert err <= 1e-5 * top, (err, top)
+    del out, x, dy
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("patched", [True, False], ids=["patched_limit", "below_limit"])
+def test_cuda_chunked_batch_norm_at_a_patched_limit_matches_torch(cuda_device, monkeypatch,
+                                                                  dtype, patched):
+    """The limit patched so that (7, 16, 32, 32) splits into chunks of 3, 2
+    and 2 rows: torch's two CUDA primitives per chunk give ``nn.BatchNorm2d``'s
+    output and statistics bit for bit, and its gradients (float64 to 1e-12
+    of each leaf's largest; bf16 as at full size). cuDNN is off on both
+    sides: ``nn.BatchNorm2d`` runs it on a float64 or float32 input of
+    fewer than 2**31 - 1 elements, never on one the chunked path takes.
+    Below the limit nothing engages and everything is bitwise."""
+    from crosstalk_tpu_torch.models import layers
+    from crosstalk_tpu_torch.models.layers import ChunkedBatchNormFn
+
+    if patched:
+        monkeypatch.setattr(layers, "_INT32_NUMEL", 3 * 16 * 32 * 32 + 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = _channels_last_randn((7, 16, 32, 32), dtype, gen, cuda_device).mul_(2).add_(0.5)
+    dy = _channels_last_randn((7, 16, 32, 32), dtype, gen, cuda_device)
+    affine = torch.float64 if dtype == torch.float64 else torch.float32
+    bn, plain = _bn_pair(cuda_device, 16, affine, seed=10)
+    before = ChunkedBatchNormFn.engaged
+    with torch.backends.cudnn.flags(enabled=False):
+        got, want = _bn_step(bn, x, dy), _bn_step(plain, x, dy)
+    torch.cuda.synchronize()
+    assert ChunkedBatchNormFn.engaged == before + patched
+    if patched:
+        _assert_bn_matches(got, want, 1e-12 if dtype == torch.float64 else 1e-3)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip((got[0], *got[1], *got[2:]),
+                                                     (want[0], *want[1], *want[2:])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,engaged", [("single", 1), ("double", 0)])
+def test_cuda_train_step_at_batch_256_chunks_block_0_of_single_only(cuda_device, variant,
+                                                                    engaged):
+    """One bf16 step of the full-width model at the CLI's -b 256: the
+    single-branch block 0 (2**31 elements) takes the chunked backward once;
+    no two-branch BatchNorm reaches the limit."""
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.models.layers import ChunkedBatchNormFn
+    from crosstalk_tpu_torch.models.registry import build_model, init_model
+    from crosstalk_tpu_torch.train.steps import init_train_state, make_train_step
+
+    model = build_model(ModelConfig(variant=variant), image_size=256, device=cuda_device)
+    init_model(model, torch.Generator(device=cuda_device).manual_seed(0))
+    step = make_train_step(init_train_state(model, OptimConfig()), compute_dtype="bf16", seed=5)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    raw = torch.rand(256, 256, 256, 2, device=cuda_device, generator=gen) * 1800 + 100
+    labels = torch.rand(256, 1, device=cuda_device, generator=gen) * 0.5
+    before = ChunkedBatchNormFn.engaged
+    loss = step(raw, labels, 1e-3)
+    torch.cuda.synchronize()
+    assert ChunkedBatchNormFn.engaged - before == engaged
+    assert bool(torch.isfinite(loss))
+    del model, step, raw, loss
+    torch.cuda.empty_cache()
