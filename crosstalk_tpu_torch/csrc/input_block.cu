@@ -42,9 +42,10 @@
 //    blocks x SMs) over (channel slice, image, row strip, column strip)
 //    tiles, so stores drain while other warps load and multiply.
 //
-// Measured on an H100 (chip_smoke.py, PERF.md): the work per output byte
-// (fragment loads, phase max, bias, LeakyReLU, casts, addressing), not the
-// stores, sets the time; removing the stores alone barely moves it.
+// Measured on an H100 with edited copies of this source: the work per
+// output byte (fragment loads, phase max, bias, LeakyReLU, casts,
+// addressing), not the stores, sets the time; removing the stores alone
+// barely moves it.
 //
 // Bound at 256x256, C=2, F=128 per tile: 524,288 B of f32 input read,
 // 4,194,304 B of bf16 output written -> 4.72 MB, 1.41 us at 3.35 TB/s. The

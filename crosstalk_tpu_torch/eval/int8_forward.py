@@ -28,7 +28,7 @@ the zero-padded int8 activations (K = 9 * C_in). Nine shifted-tap products
 (K = C_in each) avoid the im2col but write and add an M x N int32 product
 per tap: at block 1 with a batch of 256 they took 51.1 ms and 12.9 GiB of
 extra device memory against 17.7 ms and 9.0 GiB for the im2col product
-(``tools/int8_conv_taps.py`` on an H100 80GB HBM3 at 700 W). Quantization
+(CUDA events on an H100 80GB HBM3 at 700 W). Quantization
 error is far outside the 1e-4 parity budget; the tier is opt-in
 (DEPLOY.md's parity map gives the JAX package's measured deviation).
 

@@ -148,17 +148,6 @@ def test_conv_block_int8_matches_jax_exactly(b, h, w, c, n):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-def test_nine_tap_conv_of_the_tool_equals_the_im2col_product():
-    """The alternative timed by tools/int8_conv_taps.py computes the same
-    int32 accumulators as the tier's im2col product."""
-    from crosstalk_tpu_torch.tools.int8_conv_taps import nine_tap_products
-
-    gen = torch.Generator().manual_seed(0)
-    xq = torch.randint(-127, 128, (2, 6, 10, 16), generator=gen, dtype=torch.int8)
-    w = torch.randint(-127, 128, (24, 9 * 16), generator=gen, dtype=torch.int8)
-    assert torch.equal(nine_tap_products(xq, w), P._conv3x3_int8(xq, w))
-
-
 def test_mse_clip_matches_jax_and_tightens_gaussian_tails():
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, 200_000).astype(np.float32)

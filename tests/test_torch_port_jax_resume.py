@@ -22,8 +22,8 @@ width-4 two-branch one; its run dir is then read by the port:
     (measured). The BN running statistics the step updated are held within
     1e-5 of each leaf's largest magnitude;
   * the train CLI's ``--resume --device cpu``, the fallback across formats,
-    and ``chip_smoke.py``'s JAX-format writer byte for byte against the
-    JAX package's ``save_checkpoint``.
+    and ``tests/jax_format.py``'s JAX-format writer (which the card tests
+    use) byte for byte against the JAX package's ``save_checkpoint``.
 """
 
 import glob
@@ -42,7 +42,6 @@ import pytest
 import torch
 from flax import serialization
 
-import chip_smoke
 import crosstalk_tpu.config as jcfg
 from crosstalk_tpu.io import checkpoint as jck
 from crosstalk_tpu.io.torch_convert import flax_to_torch
@@ -54,6 +53,7 @@ from crosstalk_tpu_torch.io.flax_msgpack import msgpack_restore
 from crosstalk_tpu_torch.io.torch_convert import from_jax_train_state
 from crosstalk_tpu_torch.models.registry import build_model
 from crosstalk_tpu_torch.train.steps import init_train_state, make_train_step
+from tests import jax_format
 from tests.conftest import make_synthetic_dataset
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -511,7 +511,7 @@ def test_reads_flax_files_in_a_fresh_process_without_msgpack(runs):
     assert fmt == "jax" and step == "2" and int(n) > 30
 
 
-# --- (g) chip_smoke.py's JAX-format writer ----------------------------------
+# --- (g) tests/jax_format.py's JAX-format writer -----------------------------
 
 def _numpy_tree(tree):
     if isinstance(tree, dict):
@@ -520,19 +520,19 @@ def _numpy_tree(tree):
 
 
 @pytest.mark.parametrize("variant", ["single", "double"])
-def test_chip_smoke_encoder_writes_the_jax_state_bytes(runs, variant):
+def test_jax_format_encoder_writes_the_jax_state_bytes(runs, variant):
     _, dirs = runs
     run_dir = dirs[variant]
     _, _, jstate, _ = jax_state(run_dir, variant)
     want = state_bytes(os.path.join(run_dir, "checkpoints", "train_ckpt.bin"))
     assert want == serialization.to_bytes(jstate)
-    got = chip_smoke.flax_msgpack_bytes(_numpy_tree(serialization.to_state_dict(jstate)))
+    got = jax_format.flax_msgpack_bytes(_numpy_tree(serialization.to_state_dict(jstate)))
     assert got == want
 
 
-def test_chip_smoke_run_dir_checkpoint_equals_the_jax_file(runs, tmp_path):
+def test_jax_format_run_dir_checkpoint_equals_the_jax_file(runs, tmp_path):
     """The port's restore of a JAX checkpoint, written back by
-    ``chip_smoke.jax_train_state`` + ``write_jax_checkpoint``: the JAX
+    ``jax_format.jax_train_state`` + ``write_jax_checkpoint``: the JAX
     package's file, byte for byte (layout conversion both ways, key order,
     meta)."""
     _, dirs = runs
@@ -540,11 +540,11 @@ def test_chip_smoke_run_dir_checkpoint_equals_the_jax_file(runs, tmp_path):
     payload, meta = checkpoint.load_checkpoint(dirs["single"])
     names = [n for n, _ in port_state("single", payload).model.named_parameters()]
     opt = payload["optimizer"]["state"]
-    tree = chip_smoke.jax_train_state(
+    tree = jax_format.jax_train_state(
         payload["model"], {n: opt[i]["exp_avg"] for i, n in enumerate(names)},
         {n: opt[i]["exp_avg_sq"] for i, n in enumerate(names)}, payload["step"])
     jax_meta = {k: v for k, v in meta.items()
                 if k not in ("source_format", "source_file", "state_sha256")}
     path = str(tmp_path / "train_ckpt.bin")
-    blob = chip_smoke.write_jax_checkpoint(path, tree, jax_meta)
+    blob = jax_format.write_jax_checkpoint(path, tree, jax_meta)
     assert blob == open(jax_file, "rb").read() == open(path, "rb").read()

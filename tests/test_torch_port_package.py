@@ -20,6 +20,12 @@ PKG = ROOT / "crosstalk_tpu_torch"
 FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|msgpack|crosstalk_tpu)(\.|$)")
 
 
+# the card suite (``pytest -m cuda tests/test_torch_port_cuda*.py``) and its
+# JAX-format helper: they run where JAX is not installed
+CARD_SUITE = sorted((ROOT / "tests").glob("test_torch_port_cuda*.py")) + [
+    ROOT / "tests" / "jax_format.py"]
+
+
 def _module_names():
     names = []
     for path in sorted(PKG.rglob("*.py")):
@@ -134,7 +140,7 @@ def test_lazy_top_level_names_load_no_jax_in_a_fresh_process():
 
 
 def test_import_loads_no_jax_in_a_fresh_process():
-    mods = _module_names() + ["chip_smoke"]
+    mods = _module_names()
     code = (
         "import importlib, re, sys\n"
         f"for m in {mods!r}:\n"
@@ -150,9 +156,29 @@ def test_import_loads_no_jax_in_a_fresh_process():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("path", CARD_SUITE, ids=lambda p: p.name)
+def test_card_suite_file_imports_no_jax_in_a_fresh_process(path):
+    """Each file of the card suite imports with ``tests/conftest.py`` (which
+    imports JAX) not loaded, and loads no JAX module."""
+    module = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    code = (
+        "import importlib, re, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "assert 'tests.conftest' not in sys.modules\n"
+        f"bad = sorted(m for m in sys.modules if re.match({FORBIDDEN.pattern!r}, m))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_source_scan_finds_no_jax_import():
     offenders = []
-    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in sorted(PKG.rglob("*.py")) + CARD_SUITE:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
