@@ -15,6 +15,12 @@ With a ``process_group`` the BatchNorms are cross-replica
 chunks where the input is too large for torch's 32-bit channels-last
 kernels) and ``OneRowBatchNorm1d`` (``nn.BatchNorm1d`` that also trains on
 one row).
+
+The models hold their conv blocks in ``ConvBlocks`` (an ``nn.Sequential``
+by ``repr`` and keys), which in the train step on the card runs each
+block's LeakyReLU and 2x2 max pool as ``ops/leaky_pool.LeakyPoolFn``: the
+hand-written kernels of ``csrc/leaky_pool.cu``, forward and backward, with
+no index tensor and torch's results bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.autograd.function import once_differentiable
+
+from crosstalk_tpu_torch.ops import leaky_pool
 
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
@@ -250,6 +258,33 @@ class SeededDropout(nn.Dropout):
             return super().forward(x)
         keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
         return x * keep * (1.0 / (1.0 - self.p))
+
+
+class ConvBlocks(nn.Sequential):
+    """The ``nn.Sequential`` of ``conv_block`` items, four a block, that
+    runs each block's LeakyReLU and 2x2 max pool as ``LeakyPoolFn`` (one
+    hand-written kernel each way, no index tensor; ``ops/leaky_pool.py``)
+    where that applies: in training with grad enabled, on an input the
+    kernels take (``leaky_pool.takes``: CUDA, bf16 or f32, channels-last,
+    even H and W, whole 16-byte channel vectors). Anything else, eval mode
+    (export, validation, prediction, serving) and the CPU included, runs
+    the block's ``nn.LeakyReLU`` and ``nn.MaxPool2d``. Both give the same
+    numbers bit for bit. Same items, ``state_dict`` and ``repr`` as
+    ``nn.Sequential``."""
+
+    def _get_name(self) -> str:
+        return "Sequential"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        items = list(self._modules.values())
+        fused = self.training and torch.is_grad_enabled()
+        for conv, bn, act, pool in zip(*[iter(items)] * 4):
+            x = bn(conv(x))
+            if fused and leaky_pool.takes(x):
+                x = leaky_pool.LeakyPoolFn.apply(x, act.negative_slope)
+            else:
+                x = pool(act(x))
+        return x
 
 
 def conv_block(cin: int, cout: int, *, slope: float = 0.01, eps: float = 1e-5,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crosstalk_tpu_torch.models.layers import conv_block, head_layers
+from crosstalk_tpu_torch.models.layers import ConvBlocks, conv_block, head_layers
 
 
 class SingleBranchRegressor(nn.Module):
@@ -30,7 +30,7 @@ class SingleBranchRegressor(nn.Module):
         for _ in range(1, num_conv_blocks):
             cin, cout = cout, min(cout * 2, max_filters)
             layers += conv_block(cin, cout, **kw)
-        self.conv_layers = nn.Sequential(*layers)
+        self.conv_layers = ConvBlocks(*layers)
         side = image_size >> num_conv_blocks
         self.fc_layers = nn.Sequential(
             *head_layers(cout * side * side, dropout, **kw))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crosstalk_tpu_torch.models.layers import conv_block, head_layers
+from crosstalk_tpu_torch.models.layers import ConvBlocks, conv_block, head_layers
 
 
 class FeatureBranch(nn.Module):
@@ -25,7 +25,7 @@ class FeatureBranch(nn.Module):
         for mult in (1, 2, 4, 8):
             blocks += conv_block(cin, filters * mult, **kw)
             cin = filters * mult
-        self.conv_blocks = nn.Sequential(*blocks)
+        self.conv_blocks = ConvBlocks(*blocks)
 
     def _get_name(self) -> str:
         return "SimplifiedFeatureExtractionBranch"  # reference class name

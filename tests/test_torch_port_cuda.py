@@ -1,15 +1,18 @@
-"""Card-only tests of the port: the CUDA kernel against its plain PyTorch
-version, the serving path (predictor, batcher thread, f16 transport) and
-the chunked BatchNorm backward (``models/layers.ChunkedBatchNorm2d``) on the
-card. They skip on a host without an NVIDIA card (the kernel has no
-CPU mode). This file imports neither JAX nor the test fixtures that do, so where
-JAX is not installed it runs, with ``tests/test_torch_port_cuda_cli.py``, as
+"""Card-only tests of the port: the CUDA kernel K1 against its plain PyTorch
+version, the serving path (predictor, batcher thread, f16 transport), the
+chunked BatchNorm backward (``models/layers.ChunkedBatchNorm2d``) and the
+LeakyReLU + max-pool kernels (``ops/leaky_pool.py``) on the card. They
+skip on a host without an NVIDIA card (the kernels have no CPU mode). This
+file imports neither JAX nor the test fixtures that do, so where JAX is not
+installed it runs, with ``tests/test_torch_port_cuda_cli.py``, as
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_port_cuda*.py
 
-Tolerance: one bf16 ulp (2**-7 relative) where |y| > 1e-3, 1e-5 absolute
-elsewhere (both sides sum exact bf16 products in f32, in different orders:
-the kernel's tensor cores and the plain version's f32 conv).
+Tolerance for K1: one bf16 ulp (2**-7 relative) where |y| > 1e-3, 1e-5
+absolute elsewhere (both sides sum exact bf16 products in f32, in different
+orders: the kernel's tensor cores and the plain version's f32 conv). The
+LeakyReLU + max-pool kernels are held bit for bit against torch's CUDA
+chain.
 """
 
 import pytest
@@ -882,10 +885,12 @@ def test_cuda_train_step_at_batch_256_chunks_block_0_of_single_only(cuda_device,
                                                                     engaged):
     """One bf16 step of the full-width model at the CLI's -b 256: the
     single-branch block 0 (2**31 elements) takes the chunked backward once;
-    no two-branch BatchNorm reaches the limit."""
+    no two-branch BatchNorm reaches the limit. Every conv block runs the
+    LeakyReLU + max-pool kernels once each way: 6 + 6 single, 8 + 8 double."""
     from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
     from crosstalk_tpu_torch.models.layers import ChunkedBatchNormFn
     from crosstalk_tpu_torch.models.registry import build_model, init_model
+    from crosstalk_tpu_torch.ops.leaky_pool import leaky_pool_backward, leaky_pool_forward
     from crosstalk_tpu_torch.train.steps import init_train_state, make_train_step
 
     model = build_model(ModelConfig(variant=variant), image_size=256, device=cuda_device)
@@ -895,9 +900,189 @@ def test_cuda_train_step_at_batch_256_chunks_block_0_of_single_only(cuda_device,
     raw = torch.rand(256, 256, 256, 2, device=cuda_device, generator=gen) * 1800 + 100
     labels = torch.rand(256, 1, device=cuda_device, generator=gen) * 0.5
     before = ChunkedBatchNormFn.engaged
+    launches = leaky_pool_forward.launches, leaky_pool_backward.launches
     loss = step(raw, labels, 1e-3)
     torch.cuda.synchronize()
     assert ChunkedBatchNormFn.engaged - before == engaged
+    blocks = 6 if variant == "single" else 8
+    assert (leaky_pool_forward.launches - launches[0],
+            leaky_pool_backward.launches - launches[1]) == (blocks, blocks)
     assert bool(torch.isfinite(loss))
     del model, step, raw, loss
     torch.cuda.empty_cache()
+
+
+# --- the LeakyReLU + 2x2 max-pool kernels (ops/leaky_pool.py) -------------
+
+# every conv block's BatchNorm output in the train step at the CLI's -b 256
+_LEAKY_POOL_BLOCKS = {
+    "single": [(256, 128, 256, 256), (256, 256, 128, 128), (256, 512, 64, 64),
+               (256, 512, 32, 32), (256, 512, 16, 16), (256, 512, 8, 8)],
+    "double": [(256, 64, 256, 256), (256, 128, 128, 128), (256, 256, 64, 64),
+               (256, 512, 32, 32)],
+}
+# two negative bf16 values whose LeakyReLU(0.01) rounds to one bf16 value
+_LEAKY_TIE = (-1.9921875, -1.984375)
+
+
+def _leaky_pool_input(shape, dtype, device, seed, ties):
+    """(N, C, H, W) channels-last. ``ties``: halves in [-2, 2], so windows
+    tie often, with +-inf, NaN, -0 and the LeakyReLU tie pair strewn in;
+    else randn."""
+    n, c, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if not ties:
+        x = torch.randn(n, h, w, c, device=device, dtype=dtype, generator=gen)
+    else:
+        x = torch.randint(-4, 5, (n, h, w, c), device=device, dtype=torch.int8,
+                          generator=gen).to(dtype).mul_(0.5)
+        flat = x.view(-1)
+        for start, step, v in ((1, 4099, float("inf")), (2, 4093, float("-inf")),
+                               (3, 8191, float("nan")), (5, 4091, -0.0),
+                               (7, 61, _LEAKY_TIE[0]), (8, 59, _LEAKY_TIE[1])):
+            flat[start::step] = v
+    return x.permute(0, 3, 1, 2)
+
+
+def _assert_equal_bits(got, want):
+    """Equal bit for bit (NaN payloads and the signs of zeros included)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[want.dtype]
+    a = got.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).view(bits)
+    b = want.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).view(bits)
+    if not torch.equal(a, b):
+        where = (a != b).nonzero()[:8]
+        raise AssertionError(f"{int((a != b).sum())} elements differ; first (n, h, w, c), got, want: "
+                             f"{[(i.tolist(), int(a[tuple(i)]), int(b[tuple(i)])) for i in where]}")
+
+
+def _check_leaky_pool_against_torch(x, g, slope=0.01):
+    """The kernels' output and grad_x against autograd of torch's CUDA
+    ``F.leaky_relu`` -> ``F.max_pool2d``, bit for bit; one launch each way."""
+    import torch.nn.functional as F
+
+    from crosstalk_tpu_torch.ops.leaky_pool import (
+        leaky_pool_backward,
+        leaky_pool_forward,
+    )
+
+    before = leaky_pool_forward.launches, leaky_pool_backward.launches
+    out = leaky_pool_forward(x, slope)
+    grad = leaky_pool_backward(x, g, slope)
+    torch.cuda.synchronize()
+    assert (leaky_pool_forward.launches, leaky_pool_backward.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    leaf = x.detach().requires_grad_()
+    want_out = F.max_pool2d(F.leaky_relu(leaf, slope), 2, 2)
+    (want_grad,) = torch.autograd.grad(want_out, leaf, g)
+    _assert_equal_bits(out, want_out.detach())
+    del want_out, out
+    _assert_equal_bits(grad, want_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("variant,block", [(v, k) for v, s in _LEAKY_POOL_BLOCKS.items()
+                                           for k in range(len(s))])
+def test_cuda_leaky_pool_kernels_equal_torch_at_every_block_of_batch_256(
+        cuda_device, variant, block, dtype):
+    """Every conv block's shape of both models at -b 256 (single's block 0
+    holds 2**31 elements, so its last ones need 64-bit offsets), on
+    tie-heavy inputs with +-inf, NaN and -0 (block 0 also on randn): output
+    and grad_x bit for bit torch's CUDA chain's."""
+    shape = _LEAKY_POOL_BLOCKS[variant][block]
+    n, c, h, w = shape
+    for ties in ((True, False) if block == 0 else (True,)):
+        x = _leaky_pool_input(shape, dtype, cuda_device, seed=block, ties=ties)
+        g = _leaky_pool_input((n, c, h // 2, w // 2), dtype, cuda_device, seed=100 + block,
+                              ties=False)
+        _check_leaky_pool_against_torch(x, g)
+        del x, g
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_leaky_pool_kernels_equal_torch_on_every_window_order(cuda_device, dtype):
+    """Every window of four drawn from {-inf, -1, NaN, the LeakyReLU tie
+    pair, -0, 0} in every order, laid out as 49 x 49 windows of two images
+    (the second in reverse order, so the window of -inf alone sits once at
+    an image's first window and once elsewhere), under gradients with -0:
+    bit for bit torch's CUDA chain."""
+    vals = torch.tensor([float("-inf"), -1.0, float("nan"), *_LEAKY_TIE, -0.0, 0.0])
+    grid = torch.cartesian_prod(*[torch.arange(len(vals))] * 4)  # (2401, 4) in (h, w) order
+    windows = vals[grid].view(49, 49, 2, 2)
+    image = windows.permute(0, 2, 1, 3).reshape(98, 98)
+    x = torch.stack([image, image.flip(0, 1)])[:, None].expand(2, 16, 98, 98)
+    x = x.to(cuda_device, dtype).contiguous(memory_format=torch.channels_last)
+    g = torch.tensor([1.0, -0.0, -3.0, 2.5, 0.0]).repeat(2 * 49 * 49 // 5 + 1)[:2 * 49 * 49]
+    g = g.view(2, 1, 49, 49).expand(2, 16, 49, 49)
+    g = g.to(cuda_device, dtype).contiguous(memory_format=torch.channels_last)
+    _check_leaky_pool_against_torch(x, g)
+
+
+@pytest.mark.cuda
+def test_cuda_leaky_pool_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    from crosstalk_tpu_torch.ops.leaky_pool import leaky_pool_backward, leaky_pool_forward
+
+    x = torch.rand(2, 16, 8, 8, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    for bad in (x.contiguous(), x.half(), x[:, :, :7, :7], x[:, :6]):
+        with pytest.raises(ValueError):
+            leaky_pool_forward(bad, 0.01)
+    with pytest.raises(ValueError):
+        leaky_pool_backward(x, torch.rand(2, 16, 8, 8, device=cuda_device), 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["single", "double"])
+@pytest.mark.parametrize("compute_dtype", ["bf16", "f32"])
+def test_cuda_train_step_through_the_leaky_pool_kernels_equals_the_bypassed_step(
+        cuda_device, monkeypatch, variant, compute_dtype):
+    """Three steps of the full-width model at 256 px, batch 16, from one
+    state: through the kernels, and twice with them bypassed (``takes``
+    patched to refuse). cuDNN is deterministic here, so the two bypassed
+    runs are bitwise one and their spread is 0: the kernels' losses,
+    gradients and state equal them bit for bit, and every conv block
+    launches each kernel once a step."""
+    import copy
+
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.models.registry import build_model, init_model
+    from crosstalk_tpu_torch.ops import leaky_pool
+    from crosstalk_tpu_torch.train.steps import init_train_state, make_train_step
+
+    model = build_model(ModelConfig(variant=variant), image_size=256, device=cuda_device)
+    init_model(model, torch.Generator(device=cuda_device).manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    raw = torch.rand(3, 16, 256, 256, 2, device=cuda_device, generator=gen) * 1800 + 100
+    labels = torch.rand(3, 16, 1, device=cuda_device, generator=gen) * 0.5
+    takes = leaky_pool.takes
+
+    def run(fused):
+        monkeypatch.setattr(leaky_pool, "takes", takes if fused else (lambda x: False))
+        state = init_train_state(copy.deepcopy(model), OptimConfig())
+        step = make_train_step(state, compute_dtype=compute_dtype, seed=5)
+        before = leaky_pool.leaky_pool_forward.launches, leaky_pool.leaky_pool_backward.launches
+        losses = [step(raw[i], labels[i], 1e-3) for i in range(3)]
+        torch.cuda.synchronize()
+        launched = (leaky_pool.leaky_pool_forward.launches - before[0],
+                    leaky_pool.leaky_pool_backward.launches - before[1])
+        return (torch.stack(losses), {k: p.grad.clone() for k, p in state.model.named_parameters()},
+                {k: v.clone() for k, v in state.model.state_dict().items()}, launched)
+
+    blocks = 6 if variant == "single" else 8
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain, again, fused = run(False), run(False), run(True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    assert plain[3] == again[3] == (0, 0)
+    assert fused[3] == (3 * blocks, 3 * blocks)
+    for a, b in ((again, plain), (fused, plain)):
+        assert torch.equal(a[0], b[0])
+        for got, want in zip(a[1:3], b[1:3]):
+            assert list(got) == list(want)
+            assert all(torch.equal(got[k], want[k]) for k in want), \
+                [k for k in want if not torch.equal(got[k], want[k])]
