@@ -52,8 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-j", "--cpu_jobs", type=int, default=20,
                         help="Number of CPUs to use")
     parser.add_argument("-o", "--model_options", type=str, default="single",
-                        help="Use single- or double-branch model",
-                        choices=["single", "double"])
+                        help="Use single- or double-branch model, or SwinV2-B "
+                             "(swinv2-b)",
+                        choices=["single", "double", "swinv2-b"])
     # Extensions beyond the reference surface:
     parser.add_argument("--initial_filters", type=int, default=None,
                         help="Model width override — must match the "
@@ -101,6 +102,10 @@ def main(argv=None) -> int:
     if args.num_conv_blocks is not None and args.model_options == "double":
         print("Error: --num_conv_blocks applies to the single-branch model "
               "only (the two-branch trunk is fixed at 4 blocks per branch).")
+        return 1
+    if args.fast and args.model_options == "swinv2-b":
+        print("Error: --fast (folded BatchNorm, kernel K1) runs the conv models "
+              "only, not swinv2-b; evaluate it without --fast.")
         return 1
 
     from crosstalk_tpu_torch.config import ModelConfig

@@ -72,8 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--timeout", type=float, default=300.0,
                         help="Remote mode: per-request timeout, seconds")
     parser.add_argument("-o", "--model_options", type=str, default="single",
-                        choices=["single", "double"],
-                        help="Use single- or double-branch model")
+                        choices=["single", "double", "swinv2-b"],
+                        help="Use single- or double-branch model, or SwinV2-B "
+                             "(swinv2-b)")
     parser.add_argument("-j", "--cpu_jobs", type=int, default=4,
                         help="TIFF-decode threads")
     parser.add_argument("-b", "--batch_size", type=int, default=64,
@@ -309,6 +310,9 @@ def _check_flags(args):
     if args.int8 and args.fast:
         return ("Error: --int8 and --fast are distinct serving tiers — pass "
                 "exactly one.")
+    if (args.fast or args.int8) and args.model_options == "swinv2-b":
+        return (f"Error: --{'int8' if args.int8 else 'fast'} runs the conv models "
+                "only, not swinv2-b; predict with it without that flag.")
     if args.int8 and args.model_options == "double":
         return ("Error: --int8 is gated to the single-branch family, as in the "
                 "JAX package. Use --fast instead.")

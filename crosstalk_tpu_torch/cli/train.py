@@ -63,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-j", "--cpu_jobs", type=int, default=1,
                         help="Number of CPUs to use")
     parser.add_argument("-o", "--model_options", type=str, default="single",
-                        help="Use single- or double-branch model",
-                        choices=["single", "double"])
+                        help="Use single- or double-branch model, or SwinV2-B "
+                             "(swinv2-b)",
+                        choices=["single", "double", "swinv2-b"])
     parser.add_argument("-r", "--learning_scheduler", type=str,
                         default="aggressive_plateau",
                         help="Use aggressive_plateau, onecycle or cosine_warmup "
@@ -362,6 +363,11 @@ def _train(args, device, group) -> int:
     if args.num_conv_blocks is not None and args.model_options == "double":
         print("Error: --num_conv_blocks applies to the single-branch model "
               "only (the two-branch trunk is fixed at 4 blocks per branch).")
+        return 1
+    if args.model_options == "swinv2-b" and (
+            args.initial_filters, args.num_conv_blocks, args.dropout) != (None, None, None):
+        print("Error: --initial_filters, --num_conv_blocks and --dropout apply to "
+              "the conv models only; swinv2-b trains at its published sizes.")
         return 1
     model_kw = {}
     if args.initial_filters is not None:

@@ -6,7 +6,21 @@ the port imports nothing of that package."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
+
+
+VARIANTS = ("single", "double", "swinv2-b")
+# the conv/BatchNorm family, which the --fast and int8 tiers and the JAX
+# package's formats know
+CNN_VARIANTS = ("single", "double")
+
+
+def require_cnn(variant: str, what: str) -> None:
+    """Raise ValueError naming ``variant`` where ``what``, a path of the
+    conv/BatchNorm models alone, cannot run it."""
+    if variant not in CNN_VARIANTS:
+        raise ValueError(f"{what} runs the conv/BatchNorm models only "
+                         f"({', '.join(CNN_VARIANTS)}), not {variant!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -15,9 +29,10 @@ class ModelConfig:
 
     'single' -> AdvancedRegressionModel(initial_filters=128, num_conv_blocks=6)
     'double' -> SimplifiedTwoBranchRegressionModel(initial_filters_per_branch=64)
+    'swinv2-b' -> SwinV2-B at window 8 (models/swinv2.py; the swin_* sizes)
     """
 
-    variant: str = "single"       # 'single' | 'double'
+    variant: str = "single"       # 'single' | 'double' | 'swinv2-b'
     input_channels: int = 2
     initial_filters: int = 128    # single-branch width
     num_conv_blocks: int = 6      # single-branch depth
@@ -31,6 +46,16 @@ class ModelConfig:
     # 'f32' is the <=1e-4 MAE parity mode (TF32 off, see device.py);
     # 'bf16' runs the nn.Module forward under bf16 autocast.
     compute_dtype: str = "bf16"
+    # SwinV2-B (configs/swinv2/swinv2_base_patch4_window8_256.yaml)
+    swin_patch: int = 4
+    swin_embed_dim: int = 128
+    swin_depths: Tuple[int, ...] = (2, 2, 18, 2)
+    swin_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    swin_window: int = 8
+    swin_mlp_ratio: float = 4.0
+    swin_drop_path: float = 0.5
+    swin_cpb_hidden: int = 512
+    swin_ln_eps: float = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)

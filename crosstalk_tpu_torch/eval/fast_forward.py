@@ -25,7 +25,7 @@ from typing import Callable, List, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from crosstalk_tpu_torch.config import ModelConfig
+from crosstalk_tpu_torch.config import ModelConfig, require_cnn
 from crosstalk_tpu_torch.io.torch_convert import StateDict, count_blocks, structure
 from crosstalk_tpu_torch.ops.input_block import (
     fold_bn_affine,
@@ -192,6 +192,7 @@ def make_fast_forward(cfg: ModelConfig, state_dict: StateDict,
     normalized (B, H, W, 2) float32 batch on that device. ``use_kernel=False``
     runs block 0 on the bf16 conv path instead of the fused input-block
     kernel (the AOT export's program, ``io/export.py``)."""
+    require_cnn(cfg.variant, "the --fast tier (folded BatchNorm, kernel K1)")
     eps, slope, double = cfg.bn_eps, cfg.leaky_slope, cfg.variant == "double"
     sd = state_dict
     branches, head = structure(cfg.variant)

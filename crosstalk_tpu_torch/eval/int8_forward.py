@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from crosstalk_tpu_torch.config import ModelConfig
+from crosstalk_tpu_torch.config import ModelConfig, require_cnn
 from crosstalk_tpu_torch.eval.fast_forward import (
     _block_affine,
     _conv_block_eval,
@@ -285,6 +285,7 @@ def calibrate_int8(
     ``int8_dense``: also record clips for the two FC+BN head blocks so
     ``make_int8_forward`` runs them in int8 (v1 behaviour).
     """
+    require_cnn(cfg.variant, "the int8 tier")
     if method not in ("mse", "absmax"):
         raise ValueError(f"unknown calibration method {method!r}")
     clip = _mse_clip if method == "mse" else _absmax_clip
@@ -326,6 +327,7 @@ def make_int8_forward(cfg: ModelConfig, state_dict: StateDict,
     runs block 0 on the bf16 conv path (the AOT export's program).
     Accuracy is NOT within the 1e-4 parity budget.
     """
+    require_cnn(cfg.variant, "the int8 tier")
     first = make_first_block(cfg, state_dict, use_kernel)
     trunk = make_int8_trunk(cfg, state_dict, scales)
     head = make_int8_head(cfg, state_dict, scales)

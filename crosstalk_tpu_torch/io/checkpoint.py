@@ -47,6 +47,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from crosstalk_tpu_torch.config import require_cnn
 from crosstalk_tpu_torch.io.flax_msgpack import msgpack_restore
 from crosstalk_tpu_torch.io.torch_convert import from_jax_train_state, save_pth
 
@@ -187,9 +188,30 @@ def _read_generation(path: str, map_location) -> Tuple[str, dict, dict]:
     return fmt, payload, meta
 
 
-def load_checkpoint(run_dir: str, map_location="cpu") -> Optional[Tuple[dict, dict]]:
+def _refuse_jax_format(ckpt_dir: str, variant: str) -> None:
+    """Raise ValueError naming ``variant`` where a model the JAX package does
+    not have (``config.CNN_VARIANTS``) would resume from its files."""
+    found = [n for n in (JAX_STATE_FILE, JAX_META_FILE) if os.path.exists(
+        os.path.join(ckpt_dir, n))]
+    for name in (CKPT_FILE, PREV_FILE):
+        path = os.path.join(ckpt_dir, name)
+        try:
+            with open(path, "rb") as f:
+                if _read_header(f, path)[0] != TORCH_FORMAT:
+                    found.append(name)
+        except (OSError, ValueError):
+            continue
+    if found:
+        require_cnn(variant, f"resuming from the JAX package's checkpoint format "
+                             f"({', '.join(found)} in {ckpt_dir})")
+
+
+def load_checkpoint(run_dir: str, map_location="cpu",
+                    variant: Optional[str] = None) -> Optional[Tuple[dict, dict]]:
     """-> (state payload, meta) of the latest readable checkpoint, or None
-    when the run has none. Reads either package's files; read from the JAX
+    when the run has none. ``variant``, the model's, refuses (ValueError) a
+    JAX-format run dir for a model the JAX package does not have. Reads
+    either package's files; read from the JAX
     package's, ``meta`` gains ``source_format`` (``'jax'`` or
     ``'jax_legacy'``) and ``source_file`` (the port's own meta comes back as
     written, as ``read_checkpoint_meta`` reads it). Falls back to the
@@ -198,6 +220,8 @@ def load_checkpoint(run_dir: str, map_location="cpu") -> Optional[Tuple[dict, di
     unreadable (naming each one's format and reason), or when a legacy JAX
     pair is torn."""
     ckpt_dir = os.path.join(run_dir, CKPT_DIR)
+    if variant is not None:
+        _refuse_jax_format(ckpt_dir, variant)
     errors = []
     for name in (CKPT_FILE, PREV_FILE):
         path = os.path.join(ckpt_dir, name)

@@ -82,7 +82,12 @@ def save_pth(path: str, state_dict: StateDict) -> None:
 def infer_model_size(sd: StateDict, variant: str) -> dict:
     """Width/depth encoded in a checkpoint: ``{"initial_filters": w,
     "num_conv_blocks": n}`` for ``single``, ``{"initial_filters_per_branch":
-    w}`` for ``double`` (its trunk depth is fixed)."""
+    w}`` for ``double`` (its trunk depth is fixed), ``{}`` for ``swinv2-b``
+    (its sizes are fixed; the checkpoint must hold its patch embedding)."""
+    if variant == "swinv2-b":
+        if "patch_embed.proj.weight" not in sd:
+            raise KeyError("patch_embed.proj.weight: not a swinv2-b checkpoint")
+        return {}
     if variant == "single":
         return {
             "initial_filters": int(sd["conv_layers.0.weight"].shape[0]),
@@ -118,12 +123,20 @@ def checkpoint_tile_geometry(sd: StateDict, variant: str):
     return spatial, pools
 
 
+# swinv2-b's weights hold no tile size: it takes a multiple of 32 pixels of
+# at least 64 (patch 4, three merges, a last map of 2 x 2 tokens or more)
+# and was configured at 256
+SWIN_IMAGE_SIZE = 256
+
+
 def image_size_compatible(sd: StateDict, variant: str, px: int) -> bool:
     """Whether ``px``-sized tiles feed this checkpoint's head exactly.
 
     Each max pool floors odd sides, so every px in
     ``[spatial*2**pools, (spatial+1)*2**pools - 1]`` pools down to the same
     head spatial size."""
+    if variant == "swinv2-b":
+        return px % 32 == 0 and px >= 64
     spatial, pools = checkpoint_tile_geometry(sd, variant)
     x = px
     for _ in range(pools):
@@ -133,7 +146,10 @@ def image_size_compatible(sd: StateDict, variant: str, px: int) -> bool:
 
 def infer_image_size(sd: StateDict, variant: str) -> int:
     """Tile size a checkpoint was trained at (the smallest compatible size
-    when it is not a multiple of ``2**pools``)."""
+    when it is not a multiple of ``2**pools``; ``SWIN_IMAGE_SIZE`` for
+    swinv2-b)."""
+    if variant == "swinv2-b":
+        return SWIN_IMAGE_SIZE
     spatial, pools = checkpoint_tile_geometry(sd, variant)
     return spatial * (2 ** pools)
 
@@ -159,6 +175,8 @@ def model_config_for_checkpoint(
             "num_conv_blocks applies to the single-branch model only "
             "(the two-branch trunk is fixed at 4 blocks per branch)"
         )
+    if initial_filters is not None and variant == "swinv2-b":
+        raise ValueError("initial_filters applies to the conv models only, not 'swinv2-b'")
     detected = infer_model_size(sd, variant)
     width_key = ("initial_filters" if variant == "single"
                  else "initial_filters_per_branch")

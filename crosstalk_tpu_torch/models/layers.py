@@ -260,6 +260,37 @@ class SeededDropout(nn.Dropout):
         return x * keep * (1.0 / (1.0 - self.p))
 
 
+class SeededDropPath(nn.Module):
+    """The keep masks of stochastic depth for a stack of residual branches,
+    one rate each: ``forward(rows)`` -> (branches, rows) float32, each row
+    of a branch kept (1 / (1 - rate)) with probability ``1 - rate`` or
+    dropped (0), in one draw: ``bernoulli_`` of a (branches, rows) tensor
+    with the column of keep probabilities; None in eval mode or where every
+    rate is 0. Drawn from ``generator`` when one is set (the train step's,
+    as for ``SeededDropout``, so the masks are a function of the step),
+    else from the device's default generator. Holds no state."""
+
+    generator: Optional[torch.Generator] = None
+
+    def __init__(self, rates, device=None):
+        super().__init__()
+        self.rates = [float(r) for r in rates]
+        if device == "meta":
+            device = None
+        self.register_buffer("keep", torch.tensor([1.0 - r for r in self.rates],
+                                                  device=device).view(-1, 1), persistent=False)
+
+    def extra_repr(self) -> str:
+        return f"branches={len(self.rates)}, max_rate={max(self.rates, default=0.0)}"
+
+    def forward(self, rows: int) -> Optional[torch.Tensor]:
+        if not self.training or not any(self.rates):
+            return None
+        masks = torch.empty((len(self.rates), rows), dtype=torch.float32,
+                            device=self.keep.device)
+        return masks.bernoulli_(self.keep, generator=self.generator).div_(self.keep)
+
+
 class ConvBlocks(nn.Sequential):
     """The ``nn.Sequential`` of ``conv_block`` items, four a block, that
     runs each block's LeakyReLU and 2x2 max pool as ``LeakyPoolFn`` (one

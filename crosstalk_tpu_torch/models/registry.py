@@ -1,5 +1,6 @@
 """Model registry (port of crosstalk_tpu/models/registry.py): the CLI's
-``-o single|double`` flag resolves here (reference train_model.py:534-537)."""
+``-o single|double|swinv2-b`` flag resolves here (reference
+train_model.py:534-537; ``swinv2-b`` is the port's own, models/swinv2.py)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,9 @@ import math
 import torch
 from torch import nn
 
-from crosstalk_tpu_torch.config import ModelConfig
+from crosstalk_tpu_torch.config import VARIANTS, ModelConfig
 from crosstalk_tpu_torch.models.single_branch import SingleBranchRegressor
+from crosstalk_tpu_torch.models.swinv2 import SwinV2Regressor, WindowAttention
 from crosstalk_tpu_torch.models.two_branch import TwoBranchRegressor
 
 
@@ -22,7 +24,16 @@ def build_model(cfg: ModelConfig, image_size: int = 256, device=None,
     ``process_group`` (the JAX package's ``axis_name``) makes every
     BatchNorm cross-replica over its ranks in train mode; None (the
     default) builds ``layers.ChunkedBatchNorm2d`` (``nn.BatchNorm2d`` with a
-    chunked backward past int32 indexing) and ``layers.OneRowBatchNorm1d``."""
+    chunked backward past int32 indexing) and ``layers.OneRowBatchNorm1d``.
+    ``swinv2-b`` has no BatchNorm and takes no group."""
+    if cfg.variant == "swinv2-b":
+        return SwinV2Regressor(
+            input_channels=cfg.input_channels, image_size=image_size,
+            patch=cfg.swin_patch, embed_dim=cfg.swin_embed_dim,
+            depths=cfg.swin_depths, heads=cfg.swin_heads, window=cfg.swin_window,
+            mlp_ratio=cfg.swin_mlp_ratio, drop_path=cfg.swin_drop_path,
+            cpb_hidden=cfg.swin_cpb_hidden, eps=cfg.swin_ln_eps, device=device,
+        ).eval()
     common = dict(
         image_size=image_size,
         leaky_slope=cfg.leaky_slope,
@@ -48,21 +59,33 @@ def build_model(cfg: ModelConfig, image_size: int = 256, device=None,
         )
     else:
         raise ValueError(
-            f"unknown model variant {cfg.variant!r} (use 'single' or 'double')")
+            f"unknown model variant {cfg.variant!r} (use one of {', '.join(VARIANTS)})")
     return model.eval()
 
 
 @torch.no_grad()
 def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every Conv2d/Linear weight and bias from
+    """Draw every Conv2d/Linear weight, and its bias where it has one, from
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with ``generator`` (torch's default
-    Kaiming-uniform(a=sqrt(5)) and its bias init reduce to this bound).
+    Kaiming-uniform(a=sqrt(5)) and its bias init reduce to this bound), in
+    module order. SwinV2's window attention then draws its q and v biases
+    at the bound of its qkv layer and sets its logit scales to ln 10; its
+    LayerNorms draw scales from U(0.8, 1.2) and shifts from U(-0.1, 0.1).
     The generator must live on the parameters' device."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
-            m.bias.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, WindowAttention):
+            bound = 1.0 / math.sqrt(m.qkv.weight.shape[1])
+            m.q_bias.uniform_(-bound, bound, generator=generator)
+            m.v_bias.uniform_(-bound, bound, generator=generator)
+            m.logit_scale.fill_(math.log(10.0))
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.uniform_(0.8, 1.2, generator=generator)
+            m.bias.uniform_(-0.1, 0.1, generator=generator)
     return model
 
 

@@ -16,6 +16,8 @@ from crosstalk_tpu_torch.models.layers import ConvBlocks, conv_block, head_layer
 
 
 class SingleBranchRegressor(nn.Module):
+    variant = "single"  # models.registry.build_model's name for it
+
     def __init__(self, input_channels: int = 2, initial_filters: int = 128,
                  num_conv_blocks: int = 6, max_filters: int = 512,
                  image_size: int = 256, leaky_slope: float = 0.01,

@@ -48,6 +48,8 @@ class RegressionHead(nn.Module):
 
 
 class TwoBranchRegressor(nn.Module):
+    variant = "double"  # models.registry.build_model's name for it
+
     def __init__(self, initial_filters_per_branch: int = 64,
                  image_size: int = 256, leaky_slope: float = 0.01,
                  bn_eps: float = 1e-5, bn_momentum: float = 0.1,

@@ -145,7 +145,8 @@ def train_model(
         # loaded on the CPU: load_state_dict moves the weights and Adam
         # moments to the parameters' device and keeps Adam's step counts on
         # the host, where the non-capturable Adam reads them without a sync
-        restored = checkpoint.load_checkpoint(run_dir)
+        restored = checkpoint.load_checkpoint(
+            run_dir, variant=getattr(state.model, "variant", None))
         if multirank:
             # rank 0 writes the checkpoints and every rank reads them from
             # its own run_dir: ranks that see different checkpoints (a
@@ -260,6 +261,7 @@ def train_model(
                     checkpoint.state_payload(state, seed),
                     {
                         "epoch": epoch + 1,
+                        "variant": getattr(state.model, "variant", None),
                         "global_step": state.step,
                         "best_val_loss": best_val_loss,
                         "epochs_without_improvement": epochs_without_improvement,

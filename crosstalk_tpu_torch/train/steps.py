@@ -13,9 +13,14 @@ groups, and the step counter is a host integer. The loop syncs once per
 epoch (train/loop.py).
 
 Random draws are stateless functions of (seed, global step): the flips of
-``data/transforms.py`` and the dropout masks of ``models/layers.SeededDropout``,
-whose generator is re-seeded per (seed, step, microbatch). A resumed run
-therefore draws what the uninterrupted run drew.
+``data/transforms.py`` and the dropout and drop-path masks of
+``models/layers.SeededDropout`` and ``SeededDropPath``, whose generator is
+re-seeded per (seed, step, microbatch) and drawn from in forward order. A
+resumed run therefore draws what the uninterrupted run drew.
+
+While a profiler runs, the spans ``crosstalk.train.forward``,
+``crosstalk.train.backward`` and ``crosstalk.train.optimizer``
+(``utils.profiling.span``) cover the host's enqueue of each phase.
 
 Data parallelism (crosstalk_tpu/train/steps.py:102-118, :157-159, :172-174,
 :206-208): with a ``process_group`` each rank steps on its own rows of the
@@ -51,7 +56,8 @@ from crosstalk_tpu_torch.data.transforms import (
     normalize_batch_nhwc,
     prepare_train_batch,
 )
-from crosstalk_tpu_torch.models.layers import SeededDropout
+from crosstalk_tpu_torch.models.layers import SeededDropout, SeededDropPath
+from crosstalk_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -117,7 +123,7 @@ def make_train_step(
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     for m in model.modules():
-        if isinstance(m, SeededDropout):
+        if isinstance(m, (SeededDropout, SeededDropPath)):
             m.generator = gen
     world, rank, module = 1, 0, model
     if process_group is not None:
@@ -152,13 +158,16 @@ def make_train_step(
             # DDP all-reduces the gradients after the last microbatch only
             sync = i == grad_accum - 1 or module is model
             with (contextlib.nullcontext() if sync else module.no_sync()):
-                with _autocast(device, compute_dtype):
+                with span("crosstalk.train.forward", host_only=False), \
+                        _autocast(device, compute_dtype):
                     preds = module(batch.permute(0, 3, 1, 2))
                 loss = F.mse_loss(preds.to(labels.dtype), labels[rows])
-                (loss / grad_accum).backward()
+                with span("crosstalk.train.backward", host_only=False):
+                    (loss / grad_accum).backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        opt.step()
+        with span("crosstalk.train.optimizer", host_only=False):
+            opt.step()
         state.step += 1
         loss = loss_sum / grad_accum
         if process_group is not None:

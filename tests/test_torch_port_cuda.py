@@ -1086,3 +1086,105 @@ def test_cuda_train_step_through_the_leaky_pool_kernels_equals_the_bypassed_step
             assert list(got) == list(want)
             assert all(torch.equal(got[k], want[k]) for k in want), \
                 [k for k in want if not torch.equal(got[k], want[k])]
+
+
+# --- SwinV2-B (models/swinv2.py) at its published widths -------------------
+
+def _swin_step(device, seed, compute_dtype="bf16"):
+    from crosstalk_tpu_torch.config import ModelConfig, OptimConfig
+    from crosstalk_tpu_torch.models.registry import build_model, init_model
+    from crosstalk_tpu_torch.train.steps import init_train_state, make_train_step
+
+    model = build_model(ModelConfig(variant="swinv2-b"), image_size=256, device=device)
+    init_model(model, torch.Generator(device=device).manual_seed(seed))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = init_train_state(model, OptimConfig())
+    return state, make_train_step(state, compute_dtype=compute_dtype, seed=seed,
+                                  augment=False), weights
+
+
+@pytest.mark.cuda
+def test_cuda_swinv2_steps_enqueue_without_a_sync(cuda_device):
+    """Two full-width bf16 steps at batch 8 under the sync debug mode
+    "error": no step reads back to the host or copies from pageable host
+    memory, and no table is rebuilt."""
+    from crosstalk_tpu_torch.models import swinv2
+
+    built = swinv2.tables_built.value
+    state, step, _ = _swin_step(cuda_device, 1)
+    assert swinv2.tables_built.value == built + 4
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    raw = torch.rand(8, 256, 256, 2, device=cuda_device, generator=gen)
+    labels = torch.rand(8, 1, device=cuda_device, generator=gen) * 0.5
+    cpb, calls = swinv2.cpb_evaluations.value, swinv2.window_attention_calls.value
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [step(raw, labels, 1e-4) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(torch.stack(losses)).all())
+    assert swinv2.tables_built.value == built + 4 and state.step == 2
+    assert swinv2.cpb_evaluations.value == cpb + 48
+    assert swinv2.window_attention_calls.value == calls + 48
+
+
+@pytest.mark.cuda
+def test_cuda_swinv2_bf16_step_within_the_cell_s_limits_of_the_reference(cuda_device):
+    """One full-width bf16 step at batch 16 against the float32 reference
+    (``tests/swinv2_ref.py``, TF32 off) under the step's own drop-path
+    masks: the step's predictions and the gradient Adam took (read back
+    from its first moment, L2 included; the output bias and the final
+    LayerNorm's shift left out, as the cell's driver leaves them out)
+    within the limits of the cell
+    ``swinv2-b.train-b128`` (``benchmark/workloads/``), as its driver reads
+    them."""
+    import json
+    import os
+    import statistics
+    import sys
+
+    import torch.nn.functional as F
+
+    from crosstalk_tpu_torch.data.transforms import (
+        DROPOUT_STREAM,
+        counter_key,
+        normalize_batch_nhwc,
+    )
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import swinv2_ref as ref
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "workloads", "swinv2-b.train-b128.json")) as f:
+        limits = json.load(f)["limits"]
+    ref.plain_numerics()
+    state, step, w0 = _swin_step(cuda_device, 4)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    raw = torch.rand(16, 256, 256, 2, device=cuda_device, generator=gen)
+    labels = torch.rand(16, 1, device=cuda_device, generator=gen) * 0.5
+    seen = []
+    hook = state.model.register_forward_hook(
+        lambda m, a, out: seen.append(out.detach().float().reshape(-1)))
+    step(raw, labels, 1e-4)
+    hook.remove()
+    params = dict(state.model.named_parameters())
+    got = {k: state.optimizer.state[p]["exp_avg"] / 0.1 for k, p in params.items()}
+
+    masks = torch.empty((48, 16), device=cuda_device).bernoulli_(
+        state.model.drop_path.keep,
+        generator=torch.Generator(device=cuda_device).manual_seed(counter_key(4, 0,
+                                                                              DROPOUT_STREAM, 0)))
+    w = {k: v.clone().requires_grad_(k in params) for k, v in w0.items()}
+    x = normalize_batch_nhwc(raw).permute(0, 3, 1, 2)
+    pred = ref.forward(w, x, image=256, masks=[(masks[2 * i], masks[2 * i + 1])
+                                                for i in range(24)])
+    F.mse_loss(pred, labels).backward()
+    diff = (seen[0] - pred.detach()[:, 0]).abs()
+    norms = {k: float((w[k].grad + 1e-4 * w0[k]).norm()) for k in params
+             if k not in ("head.bias", "norm.bias")}
+    floor = statistics.median(norms.values())
+    grad_gap = max(abs(float(got[k].norm()) - n) / max(n, floor) for k, n in norms.items())
+    assert float(diff.max()) <= limits["pred_gap"]
+    assert float(diff.mean()) <= limits["pred_mean_gap"]
+    assert grad_gap <= limits["grad_gap"]

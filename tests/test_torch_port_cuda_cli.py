@@ -607,6 +607,56 @@ def test_cuda_train_cli_resumes_and_its_checkpoints_score_fast_as_f32(card, data
         assert np.abs(fast_p - f32_p).mean() <= 2e-3, name
 
 
+@pytest.fixture(scope="module")
+def swin_data(card, tmp_path_factory):
+    """24 labeled 64 px pairs, the smallest tiles SwinV2 takes (a 2 x 2
+    last map) -> (mixed dir, source dir)."""
+    from crosstalk_tpu_torch.data.synthetic import generate_dataset
+
+    return generate_dataset(str(tmp_path_factory.mktemp("swin")), num_pairs=24, size=64,
+                            seed=6, progress_every=0, block=4)
+
+
+@pytest.mark.cuda
+def test_cuda_swinv2_train_cli_resumes_evaluates_predicts_and_refuses_fast(
+        card, swin_data, tmp_path, capsys):
+    """``train -o swinv2-b`` at its published widths: two epochs, the
+    checkpoint's meta naming the variant, a ``--resume`` to a third epoch;
+    the trained checkpoint through ``evaluate`` in f32 and bf16 and
+    ``predict``; ``--fast`` refused by name."""
+    from crosstalk_tpu_torch.cli.evaluate import main as eval_main
+    from crosstalk_tpu_torch.cli.predict import main as predict_main
+    from crosstalk_tpu_torch.io import checkpoint
+
+    mixed, source = swin_data
+    out = str(tmp_path / "train")
+    _train_cli(["-m", mixed, "-s", source, "-b", str(BATCH), "-n", "2", "-o", "swinv2-b",
+                "-j", "4", "--output_base", out])
+    (run_dir,) = glob.glob(os.path.join(out, "training_run_*"))
+    _, meta = checkpoint.load_checkpoint(run_dir)
+    assert meta["variant"] == "swinv2-b" and meta["epoch"] == 2
+    _train_cli(["-m", mixed, "-s", source, "-n", "3", "-j", "4", "--resume", run_dir])
+    _, resumed = checkpoint.load_checkpoint(run_dir)
+    rows = _read_log(run_dir)
+    assert resumed["epoch"] == 3 and len(rows) == 3
+    assert resumed["global_step"] == meta["global_step"] * 3 // 2
+    assert np.isfinite([[float(v) for v in r[1:3]] for r in rows]).all()
+    final = max(glob.glob(os.path.join(run_dir, "crosstalk_regression_model_trained_*.pth")),
+                key=os.path.getmtime)
+    common = ["-m", mixed, "-s", source, "-p", final, "-j", "4", "--batch_size", str(BATCH),
+              "--device", DEVICE, "-o", "swinv2-b"]
+    preds = {}
+    for dtype in ("f32", "bf16"):
+        rows = _eval_cli(common + ["--compute_dtype", dtype], str(tmp_path / f"eval_{dtype}"))
+        preds[dtype] = _column(rows, "Predicted_Label")
+        assert len(rows) == 24 and np.isfinite(preds[dtype]).all()
+    assert np.abs(preds["f32"] - preds["bf16"]).max() > 0  # two computations
+    assert predict_main(common + ["--output_base", str(tmp_path / "predict")]) == 0
+    capsys.readouterr()
+    assert eval_main(common + ["--fast", "--output_base", str(tmp_path / "fast")]) == 1
+    assert "swinv2-b" in capsys.readouterr().out
+
+
 def _f32_state(device, dtype=torch.float32):
     """A single-branch model (16 filters, 4 blocks, 64 px) in f32 mode,
     dropout 0, the same seeded weights on every device -> its TrainState."""
