@@ -33,8 +33,13 @@ precomputed permutation; the tokens stay in the running block's window
 layout). The attention is ``F.scaled_dot_product_attention`` with the
 position bias and region mask as its float mask (whose gradient reaches the
 CPB) and the logit scale folded into q: on the card it ran the step faster
-and in less memory than matmul, softmax, matmul (PERF.md). The drop-path
-masks of a forward are one draw (``layers.SeededDropPath``).
+and in less memory than matmul, softmax, matmul (PERF.md). Where the
+qkv projection's output is a CUDA bf16 tensor of 64-token windows and
+heads of 32 channels (every block of SwinV2-B at 256², window 8, under the
+train step's autocast), the attention is instead one hand-written kernel
+each way (``ops/window_attention.py``), which reads q, k and v from that
+output and normalises them itself. The drop-path masks of a forward are
+one draw (``layers.SeededDropPath``).
 
 Counters the tests read (``.value``): ``cpb_evaluations`` and
 ``window_attention_calls`` (one each per block and forward),
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from crosstalk_tpu_torch.models.layers import SeededDropPath
+from crosstalk_tpu_torch.ops import window_attention
 
 LOGIT_SCALE_MAX = math.log(100.0)
 MASK_VALUE = -100.0
@@ -176,7 +182,10 @@ class WindowAttention(nn.Module):
         bw, n, c = x.shape
         h, d = self.heads, c // self.heads
         qkv = F.linear(x, self.qkv.weight, torch.cat((self.q_bias, self.k_bias, self.v_bias)))
-        q, k, v = qkv.view(bw, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        qkv = qkv.view(bw, n, 3, h, d)
+        if window_attention.takes(qkv, bias, scale):
+            return self.proj(window_attention.WindowAttentionFn.apply(qkv, bias, scale))
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         # normalize(t) = rms_norm(t) / sqrt(d): the two 1 / sqrt(d) go into
         # the product's scale, the per-head logit scale into q
         q = F.rms_norm(q, (d,), eps=NORM_EPS) * scale

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA kernel K1 against its plain PyTorch
 version, the serving path (predictor, batcher thread, f16 transport), the
-chunked BatchNorm backward (``models/layers.ChunkedBatchNorm2d``) and the
-LeakyReLU + max-pool kernels (``ops/leaky_pool.py``) on the card. They
+chunked BatchNorm backward (``models/layers.ChunkedBatchNorm2d``), the
+LeakyReLU + max-pool kernels (``ops/leaky_pool.py``), SwinV2-B and its
+window-attention kernels (``ops/window_attention.py``) on the card. They
 skip on a host without an NVIDIA card (the kernels have no CPU mode). This
 file imports neither JAX nor the test fixtures that do, so where JAX is not
 installed it runs, with ``tests/test_torch_port_cuda_cli.py``, as
@@ -12,11 +13,12 @@ Tolerance for K1: one bf16 ulp (2**-7 relative) where |y| > 1e-3, 1e-5
 absolute elsewhere (both sides sum exact bf16 products in f32, in different
 orders: the kernel's tensor cores and the plain version's f32 conv). The
 LeakyReLU + max-pool kernels are held bit for bit against torch's CUDA
-chain.
+chain; the window-attention kernels' tolerances are in their test.
 """
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from crosstalk_tpu_torch.ops.input_block import (
     fused_input_block,
@@ -1188,3 +1190,143 @@ def test_cuda_swinv2_bf16_step_within_the_cell_s_limits_of_the_reference(cuda_de
     assert float(diff.max()) <= limits["pred_gap"]
     assert float(diff.mean()) <= limits["pred_mean_gap"]
     assert grad_gap <= limits["grad_gap"]
+
+
+# --- the window-attention kernels (ops/window_attention.py) ----------------
+
+# SwinV2-B at 256², window 8: (windows a tile, heads, channels) per stage
+_WA_STAGES = [(64, 4, 128), (16, 8, 256), (4, 16, 512), (1, 32, 1024)]
+_WA_CASES = [(s, sh) for s in range(4) for sh in (False, True) if s < 3 or not sh]
+_WA_IDS = [f"stage{s}-{'shifted' if sh else 'plain'}" for s, sh in _WA_CASES]
+
+
+def _wa_inputs(device, stage, shifted, batch, seed):
+    """bf16 qkv (B nW, 64, 3, h, 32), the stage's bias (16 sigmoid of a
+    draw, plus the -100 region mask where shifted), logit scales near the
+    published 10 and an output gradient, as a block of the step sees them."""
+    from crosstalk_tpu_torch.models.swinv2 import region_mask
+
+    nw, h, c = _WA_STAGES[stage]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(batch * nw, 64, 3, h, c // h, generator=gen, device=device)
+    bias = 16 * torch.sigmoid(torch.randn(1, h, 64, 64, generator=gen, device=device))
+    if shifted:
+        mask = region_mask(8 * int(nw ** 0.5), 8, 4, device=device)
+        bias = (bias + mask.unsqueeze(1)).reshape(1, nw * h, 64, 64)
+    scale = torch.exp(2.3 + 0.3 * torch.randn(h, 1, 1, generator=gen, device=device))
+    grad = torch.randn(batch * nw, 64, c, generator=gen, device=device)
+    return [t.bfloat16().contiguous() for t in (qkv, bias, scale, grad)]
+
+
+def _wa_gap(got, want):
+    """(largest |got - want| / largest |want|, relative L2 distance)."""
+    got, want = got.float(), want.float()
+    return (float((got - want).abs().max() / want.abs().max()),
+            float((got - want).norm() / want.norm()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,shifted", _WA_CASES, ids=_WA_IDS)
+def test_cuda_window_attention_matches_the_plain_version_at_batch_128(cuda_device, stage,
+                                                                      shifted):
+    """The kernels against ``forward_reference`` / ``backward_reference``
+    (the same algorithm and roundings in float32 torch ops, on the card),
+    at every SwinV2-B block's shape at batch 128: the output, dq, dk, dv,
+    the bias's and the scales' gradients, and the saved f32 statistics.
+    Both sides round the same values to bf16; their f32 sums run in other
+    orders (and the kernel's exp is the fast one), so a value near a
+    rounding boundary may round the other way, and such a flip propagates
+    (one flipped element of s u moves its row's logits by up to 2**-9 of
+    a term). Each bf16 result within 2**-6 of the tensor's largest value
+    and within 2**-10 in relative L2 (an H100 read at most 3.3e-3 and
+    7.5e-5); the statistics within 2**-9 and 2**-14 (read 6.3e-4 and
+    1.3e-6). The kernels sit closer to the float32 path than torch's bf16
+    chain does (PERF.md)."""
+    from crosstalk_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, scale, grad = _wa_inputs(cuda_device, stage, shifted, 128, seed=stage)
+    before = wa.window_attention_forward.launches, wa.window_attention_backward.launches
+    out, stats = wa.window_attention_forward(qkv, bias, scale)
+    dqkv, dbias, dscale = wa.window_attention_backward(qkv, bias, scale, stats, grad)
+    torch.cuda.synchronize()
+    assert (wa.window_attention_forward.launches - before[0],
+            wa.window_attention_backward.launches - before[1]) == (1, 1)
+    want_out, want_stats = wa.forward_reference(qkv, bias, scale)
+    rows = bias.shape[1]
+    windows = qkv.shape[0] * qkv.shape[3] // rows
+    want = wa.backward_reference(qkv, bias, scale, want_stats, grad,
+                                 wa.chunk_size(rows, windows, wa.backward_slots(cuda_device)))
+    largest, l2 = _wa_gap(stats, want_stats)
+    assert stats.shape == want_stats.shape and largest <= 2.0 ** -9 and l2 <= 2.0 ** -14, (
+        largest, l2)
+    pairs = {"out": (out, want_out), "dbias": (dbias, want[1]), "dscale": (dscale, want[2])}
+    pairs.update({name: (dqkv[:, :, i], want[0][:, :, i]) for i, name in enumerate("qkv")})
+    for name, (got, ref) in pairs.items():
+        assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        largest, l2 = _wa_gap(got, ref)
+        assert largest <= 2.0 ** -6 and l2 <= 2.0 ** -10, (name, largest, l2)
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_backward_gives_the_same_bits_twice(cuda_device):
+    """No float atomics: the bias's and scales' sums run in a fixed order,
+    on the stage with the most windows a bias row (8,192) and on a shifted
+    one."""
+    from crosstalk_tpu_torch.ops import window_attention as wa
+
+    for stage, shifted in ((0, False), (2, True)):
+        qkv, bias, scale, grad = _wa_inputs(cuda_device, stage, shifted, 128, seed=7)
+        _, stats = wa.window_attention_forward(qkv, bias, scale)
+        first = wa.window_attention_backward(qkv, bias, scale, stats, grad)
+        second = wa.window_attention_backward(qkv, bias, scale, stats, grad)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_swinv2_runs_the_window_attention_kernels_only_in_bf16(cuda_device, monkeypatch):
+    """A full-width bf16 train step at batch 8 launches 24 forward and 24
+    backward kernels and calls neither ``F.rms_norm`` nor SDPA; a bf16
+    forward without grad launches 24 forward kernels; an f32 forward on
+    the card keeps the ``rms_norm`` + SDPA path and launches none."""
+    from crosstalk_tpu_torch.ops import window_attention as wa
+
+    calls = []
+    for name in ("rms_norm", "scaled_dot_product_attention"):
+        real = getattr(F, name)
+        monkeypatch.setattr(F, name, lambda *a, _n=name, _f=real, **k: (calls.append(_n),
+                                                                          _f(*a, **k))[1])
+    state, step, _ = _swin_step(cuda_device, 2)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    raw = torch.rand(8, 256, 256, 2, device=cuda_device, generator=gen)
+    labels = torch.rand(8, 1, device=cuda_device, generator=gen) * 0.5
+
+    def launched(fn):
+        before = wa.window_attention_forward.launches, wa.window_attention_backward.launches
+        fn()
+        torch.cuda.synchronize()
+        return (wa.window_attention_forward.launches - before[0],
+                wa.window_attention_backward.launches - before[1])
+
+    assert launched(lambda: step(raw, labels, 1e-4)) == (24, 24) and not calls
+    x = raw.permute(0, 3, 1, 2)
+    model = state.model.eval()
+    with torch.no_grad():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            assert launched(lambda: model(x)) == (24, 0) and not calls
+        assert launched(lambda: model(x)) == (0, 0)
+    assert calls.count("rms_norm") == 48 and calls.count("scaled_dot_product_attention") == 24
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    from crosstalk_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, scale, grad = _wa_inputs(cuda_device, 3, False, 2, seed=1)
+    for bad in (qkv.float(), qkv[:, :32].contiguous()):
+        with pytest.raises(ValueError, match="window-attention kernels take"):
+            wa.window_attention_forward(bad, bias, scale)
+    with pytest.raises(ValueError, match="window-attention kernels take"):
+        wa.window_attention_forward(qkv, bias[:, :3].contiguous(), scale)
+    _, stats = wa.window_attention_forward(qkv, bias, scale)
+    with pytest.raises(ValueError, match="grad_out must be"):
+        wa.window_attention_backward(qkv, bias, scale, stats, grad.float())
